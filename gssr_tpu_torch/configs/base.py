@@ -1,0 +1,139 @@
+"""Typed dataclass config tree (port of gssr_tpu/configs/base.py).
+
+Same shape and output-dir layout as the reference. Configs serialize as
+plain YAML data (dict tree + class names) and are rebuilt through the
+class registry of configs/methods.py. The multi-device fields wait for
+the scale-out slice; `machine.device` picks the torch device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from datetime import datetime
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+import yaml
+
+
+@dataclass
+class MachineConfig:
+    seed: int = 42
+    # "cuda" (the card; raises if there is none) or "cpu"
+    device: str = "cuda"
+
+    def torch_device(self) -> torch.device:
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "machine.device is 'cuda' but no CUDA device is available; "
+                "pass --machine.device cpu to run on the CPU")
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device!r}")
+        return dev
+
+
+@dataclass
+class TrainerConfig:
+    iterations: int = 30_000
+    test_iterations: List[int] = field(default_factory=lambda: [30_000])
+    save_iterations: List[int] = field(default_factory=lambda: [30_000])
+    relative_gaussian_dir: str = "point_cloud/"
+    checkpoint_iterations: List[int] = field(default_factory=list)
+    relative_ckpt_dir: str = "chkpnt/"
+    save_only_latest_checkpoint: bool = False
+    load_ckpt_dir: Optional[str] = None
+    load_ckpt_step: Optional[int] = None
+    load_gaussian_dir: Optional[str] = None
+    load_gaussian_step: Optional[int] = None
+    load_config: Optional[str] = None
+    log_interval: int = 10
+
+
+@dataclass
+class DataLoaderConfig:
+    shuffle: bool = True
+    llffhold: int = 8
+    resolution_scales: List[float] = field(default_factory=lambda: [1.0])
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    # load GT frames on demand through a bounded LRU (dataio.LazyImage)
+    lazy_images: bool = False
+    image_cache_frames: int = 256
+
+
+@dataclass
+class Config:
+    source_path: Optional[str] = None
+    output_path: str = "./output"
+    method_name: Optional[str] = None
+    experiment_name: Optional[str] = None
+    timestamp: str = "{timestamp}"
+    eval: bool = False
+
+    machine: MachineConfig = field(default_factory=MachineConfig)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+    scene: object = None          # method-specific SceneConfig
+
+    def set_experiment_name(self):
+        if self.experiment_name is None:
+            self.experiment_name = str(self.source_path).rstrip("/").split(
+                "/")[-1]
+
+    def set_timestamp(self):
+        if self.timestamp == "{timestamp}":
+            self.timestamp = datetime.now().strftime("%Y-%m-%d_%H%M%S")
+
+    def get_base_dir(self) -> Path:
+        assert self.method_name is not None, "method name not set"
+        self.set_experiment_name()
+        return Path(self.output_path) / self.experiment_name / \
+            self.method_name / self.timestamp
+
+    def get_gaussian_dir(self) -> Path:
+        return self.get_base_dir() / self.trainer.relative_gaussian_dir
+
+    def get_checkpoint_dir(self) -> Path:
+        return self.get_base_dir() / self.trainer.relative_ckpt_dir
+
+    def save_config(self):
+        d = self.get_base_dir()
+        d.mkdir(parents=True, exist_ok=True)
+        save_config_yaml(self, d / "config.yml")
+
+
+def _to_plain(obj):
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {"__dataclass__": type(obj).__name__,
+                **{f.name: _to_plain(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj)}}
+    if isinstance(obj, (list, tuple)):
+        return [_to_plain(v) for v in obj]
+    if isinstance(obj, Path):
+        return str(obj)
+    return obj
+
+
+def save_config_yaml(config: Config, path):
+    with open(path, "w") as f:
+        yaml.safe_dump(_to_plain(config), f, sort_keys=False)
+
+
+def load_config_yaml(path) -> Config:
+    """Rebuild the typed config tree from plain YAML via the registry."""
+    from gssr_tpu_torch.configs.methods import config_classes
+    classes = config_classes()
+
+    def rebuild(node):
+        if isinstance(node, dict) and "__dataclass__" in node:
+            cls = classes[node["__dataclass__"]]
+            return cls(**{k: rebuild(v) for k, v in node.items()
+                          if k != "__dataclass__"})
+        if isinstance(node, list):
+            return [rebuild(v) for v in node]
+        return node
+
+    with open(path) as f:
+        return rebuild(yaml.safe_load(f))

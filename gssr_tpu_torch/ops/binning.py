@@ -1,0 +1,164 @@
+"""Tile binning: duplicate gaussians into (tile, depth)-sorted instances
+(port of the chunked path of gssr_tpu/ops/binning.py).
+
+The layout is the reference's, because the blend kernels rely on it:
+
+* per-tile instance ranges padded to a multiple of `chunk`, so every
+  128-instance chunk belongs to exactly one tile;
+* filler instances in the padding slots with `hit = 0` (blend as exact
+  alpha = 0 no-ops and receive zero gradient);
+* one stable sort of a fused int32 (tile | quantized depth) key, whose
+  top bit is flipped so signed order equals unsigned order;
+* the `gid_reduce` / `seg_bounds` pair behind the deterministic
+  per-gaussian gradient sum.
+
+The reference's `chunk_map` / `n_live_chunks` (chunk -> tile, for its flat
+chunk grid) are not built: the CUDA kernels run one block per tile and
+read only `tile_ranges`.
+
+Unlike the reference's static capacity, the instance buffer is sized
+exactly for each render: the padded total rounded up to a chunk (one host
+sync per render). So it can never overflow and `overflow` is always
+false.
+
+All index math here is non-differentiable; callers pass detached inputs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class Binning(NamedTuple):
+    gauss_id: torch.Tensor       # [I] int32 source gaussian per slot
+    tile_ranges: torch.Tensor    # [num_tiles + 1] int32 chunk-aligned starts
+    num_rendered: torch.Tensor   # [] int32 real (rect-slot) instances
+    overflow: torch.Tensor       # [] bool, always false (exact sizing)
+    tile_counts: torch.Tensor    # [num_tiles] int32 unpadded counts
+    hit: torch.Tensor            # [I] float32 in {0, 1}
+    gid_reduce: torch.Tensor     # [I] int32 gaussian id, sentinel N if none
+    seg_bounds: torch.Tensor     # [N + 1] int32 per-gaussian segment starts
+
+
+def tile_cover_counts(rect, visible, tiles_x: int, tiles_y: int):
+    """Per-tile rect-coverage counts as one matmul of 0/1 interval
+    indicators, count = U^T V. Exact only in full fp32 (counts < 2^24);
+    the package turns TF32 off for that reason among others."""
+    dev = rect.device
+    ty = torch.arange(tiles_y, dtype=torch.int32, device=dev)
+    tx = torch.arange(tiles_x, dtype=torch.int32, device=dev)
+    v = visible[:, None]
+    U = ((rect[:, 1:2] <= ty[None, :]) & (ty[None, :] < rect[:, 3:4])
+         & v).float()
+    V = ((rect[:, 0:1] <= tx[None, :]) & (tx[None, :] < rect[:, 2:3])
+         & v).float()
+    return (U.T @ V).reshape(-1).to(torch.int32)
+
+
+def _scatter_drop(target, pos, vals, reduce=None):
+    """target[pos] = vals (or amax-reduce) with out-of-range pos dropped."""
+    keep = (pos >= 0) & (pos < target.shape[0])
+    if reduce is None:
+        target[pos[keep].long()] = vals[keep]
+        return target
+    return target.scatter_reduce(0, pos[keep].long(), vals[keep], reduce)
+
+
+def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
+                  tile_mask, chunk: int = 128) -> Binning:
+    """Build the depth-sorted, chunk-padded per-tile instance list.
+
+    rect: [N,4] int32 tile rects (exclusive max); depth: [N] float32
+    view-space depth; tiles_touched: [N] int32 rect area (0 = culled);
+    tile_mask: [N] int32 exact ellipse-tile bits over the first 32 rect
+    tiles (non-hit rect slots become hit = 0 no-op lanes).
+    """
+    dev = depth.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    num_tiles = tiles_x * tiles_y
+    n = depth.shape[0]
+    assert tiles_x <= 1024, "rect pack field overflow"
+    assert n < (1 << 29), "gaussian capacity exceeds payload index bits"
+    tile_bits = max(1, int(num_tiles + 1).bit_length())
+    depth_bits = 32 - tile_bits
+    sign = -(2 ** 31)
+
+    counts = tile_cover_counts(rect, tiles_touched > 0, tiles_x, tiles_y)
+    num_rendered = tiles_touched.sum(dtype=torch.int32)
+    padded_counts = (counts + chunk - 1) // chunk * chunk
+    padded_starts = torch.cat([torch.zeros(1, **i32),
+                               torch.cumsum(padded_counts, 0,
+                                            dtype=torch.int32)])
+    instance_cap = max(int(padded_starts[-1]), chunk)     # the host sync
+    pad_counts = padded_counts - counts
+    tidx = torch.arange(num_tiles, **i32)
+    tag = 1 << 30
+
+    # instance -> gaussian (and filler slot -> tile) through one scatter of
+    # segment-start marks and a running max: real slots carry gaussian+1,
+    # filler segments their tile id+1 tagged with bit 30 so they dominate
+    offsets = torch.cumsum(tiles_touched, 0, dtype=torch.int32)
+    starts = offsets - tiles_touched
+    ii = torch.arange(instance_cap, **i32)
+    marks = torch.zeros(instance_cap, **i32)
+    _scatter_drop(marks,
+                  torch.where(tiles_touched > 0, starts,
+                              torch.full_like(starts, instance_cap)),
+                  torch.arange(n, **i32) + 1)
+    fill_starts = num_rendered + torch.cat(
+        [torch.zeros(1, **i32), torch.cumsum(pad_counts, 0,
+                                             dtype=torch.int32)])[:-1]
+    fill_pos = torch.where(pad_counts > 0, fill_starts,
+                           torch.full_like(fill_starts, instance_cap))
+    marks = _scatter_drop(marks, fill_pos, tag | (tidx + 1), reduce="amax")
+    v = torch.cummax(marks, 0).values
+    g_c = torch.clamp(v - 1, 0, n - 1)
+
+    # one packed gather of the per-gaussian fields; rect fits one int32
+    rect_w = torch.clamp(rect[:, 2] - rect[:, 0], min=1)
+    rect_pack = rect[:, 0] | (rect[:, 1] << 10) | ((rect_w - 1) << 20)
+    rcp_w = (1.0 / rect_w.float()).view(torch.int32)
+    recs = torch.stack([rect_pack, starts, depth.float().view(torch.int32),
+                        rcp_w, tile_mask.to(torch.int32)], dim=1)
+    r = recs[g_c.long()]
+    x0 = r[:, 0] & 0x3FF
+    y0 = (r[:, 0] >> 10) & 0x3FF
+    rw = ((r[:, 0] >> 20) & 0x3FF) + 1
+    local = ii - r[:, 1]
+    hit = (((r[:, 4] >> torch.clamp(local, max=31)) & 1) == 1) | (local >= 32)
+    # local // rw through the f32 reciprocal: off by at most one, fixed by
+    # the remainder test
+    rcp = r[:, 3].view(torch.float32)
+    q0 = torch.floor(torch.clamp(local, min=0).float() * rcp).to(torch.int32)
+    r0 = local - q0 * rw
+    ty_off = q0 + (r0 >= rw).to(torch.int32) - (r0 < 0).to(torch.int32)
+    tx = x0 + local - ty_off * rw
+    ty = y0 + ty_off
+    tile_id = ty * tiles_x + tx
+
+    # payload bits: 0-28 gaussian index, 29 real-instance flag, 30 hit
+    dq = (r[:, 2] >> (31 - depth_bits)) & ((1 << depth_bits) - 1)
+    key = (tile_id << depth_bits) | dq
+    payload = g_c | (hit.to(torch.int32) << 30) | (1 << 29)
+
+    # filler keys: their tile with an all-ones depth, so they sort after
+    # every real instance of the tile
+    fill_tile = torch.clamp((v & (tag - 1)) - 1, 0, num_tiles)
+    fill_key = (fill_tile << depth_bits) | ((1 << depth_bits) - 1)
+    is_real = ii < num_rendered
+    key = torch.where(is_real, key, fill_key) ^ sign
+    payload = torch.where(is_real, payload, torch.zeros_like(payload))
+    _, order = torch.sort(key, stable=True)
+    spayload = payload[order]
+    gauss_id = spayload & 0x1FFFFFFF
+    hit = (spayload >> 30).float()
+    gid_reduce = torch.where(((spayload >> 29) & 1) == 1, gauss_id,
+                             torch.full_like(gauss_id, n))
+    seg_bounds = torch.cat([torch.zeros(1, **i32), offsets])
+
+    return Binning(gauss_id=gauss_id, tile_ranges=padded_starts,
+                   num_rendered=num_rendered,
+                   overflow=torch.zeros((), dtype=torch.bool, device=dev),
+                   tile_counts=counts, hit=hit, gid_reduce=gid_reduce,
+                   seg_bounds=seg_bounds)
