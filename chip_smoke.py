@@ -5,27 +5,38 @@
 
 Phases; any failure exits non-zero, and nothing is caught and passed over:
 
-1. build    nvcc builds the hand-written kernels of gssr_tpu_torch/csrc/
-            for sm_90a; prints the build seconds and the card.
+1. build    one nvcc per source of gssr_tpu_torch/csrc/, all started
+            together, for sm_90a; prints the build seconds, the registers
+            and spills, and the card.
 2. kernels  each blend kernel against its plain PyTorch version on the
-            card, at 256x256 with ~20k gaussians and a dense-overdraw tile
-            (so the early stop fires); the backward runs twice and must
+            card at 256x256: the vanilla pair with ~20k gaussians, the
+            surfel pair with ~20k surfels, each with a dense overdraw stack
+            (so the early stop fires, and for the surfels the median too)
+            and a seeded randn cotangent; each backward runs twice and must
             agree bit for bit.
-3. train    the main path: `python -m gssr_tpu_torch.train 3dgs`, called
-            in process on a synthetic COLMAP scene (8 ring cameras at
-            1600x1056, 200k initial points, GT rendered by the port from a
-            separate random gaussian set), STEPS steps with SH degree 3 and
-            two densify passes on the card. Asserts finite losses that fall, a written
-            PLY, and that every step launched both kernels.
-4. report   both kernels against their plain versions again, at the blend
-            inputs of the main path (the trained model, one of its
-            cameras, the cotangent of its own loss scaled to unit size),
-            with times and bounds;
-            prints the {"kernels": [...]} line, the card, and last the
-            {"ok": true, "device": {...}} line.
+3. train    each main path through its CLI entry point, called in process
+            on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
+            initial points, GT rendered by the port from a separate random
+            gaussian set): `python -m gssr_tpu_torch.train 3dgs`, then
+            `... 2dgs`, STEPS steps each with SH degree 3 and two densify
+            passes. Asserts finite losses that fall, a changed n_active, a
+            written PLY, and that every step launched the path's two
+            kernels; prints the median step, its tail, Mpix/s, peak memory.
+   mesh     `python -m gssr_tpu_torch.extract_mesh` on the 2dgs run, in
+            process: bounded at a 257^3 grid, then unbounded at 128^3.
+            Asserts non-empty meshes; prints their sizes and the seconds
+            of rendering, fusion and marching tetrahedra.
+4. report   all four kernels against their plain versions again, at their
+            main path's own inputs (the trained model, one of its cameras):
+            the vanilla pair under the cotangent of its loss, the surfel
+            pair under that of the 2dgs loss with both regularisers live
+            plus a random one on median_normal, each scaled to unit size;
+            with times and bounds. Prints the {"kernels": [...]} line, the
+            card, and last the {"ok": true, "device": {...}} line.
 
---profile FILE adds three profiled train steps after phase 3 and writes
-torch.profiler's per-kernel table to FILE.
+--profile FILE adds three profiled train steps to each path after phase 3
+and writes torch.profiler's per-kernel tables to FILE (3dgs) and
+FILE with `_2dgs` before its suffix.
 """
 from __future__ import annotations
 
@@ -49,6 +60,14 @@ PEAK_BYTES = 3.35e12
 # kernels in gssr_tpu_torch/csrc/blend.cu (the exp counts as one)
 FWD_OPS_PER_PAIR = 28
 BWD_OPS_PER_PAIR = 56
+# the same for the surfel kernels of gssr_tpu_torch/csrc/blend2d.cu: per
+# evaluated pair (the surfel and the transmittance walk) and per
+# contributing pair (the sums, or the gradient terms and one add a row for
+# the sum over pixels)
+FWD2_OPS_PER_PAIR = 49
+FWD2_OPS_PER_CONTRIB = 30
+BWD2_OPS_PER_PAIR = 49
+BWD2_OPS_PER_CONTRIB = 103
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-4)
 BWD_TOL = dict(atol=2e-4, rtol=2e-3)
@@ -60,6 +79,14 @@ N_GT_GAUSSIANS = 50_000
 # SH degree 3 from step 15 (oneup every 5), densify after steps 20 and 30,
 # four whole epochs of the N_CAMS cameras
 STEPS = 32
+# extract_mesh's options for the 2dgs run: the ring has radius 4, so the
+# bounded grid spans 6 units at a 256^3 resolution
+MESH_RUNS = (("bounded", ["--depth-trunc", "6.0", "--voxel-size", "0.0234",
+                          "--sdf-trunc", "0.08"]),
+             ("unbounded", ["--unbounded", "--resolution", "128"]))
+# the kernels each main path must launch at every step
+PATH_KERNELS = {"3dgs": ("blend_fwd", "blend_bwd"),
+                "2dgs": ("blend2d_fwd", "blend2d_bwd")}
 
 
 def card() -> str:
@@ -119,6 +146,28 @@ def blend_inputs(means, scales, rots, opacity, color, cam, width, height,
     return attrs, b.tile_ranges, pw // TILE, ph // TILE
 
 
+@torch.no_grad()
+def blend2d_inputs(means, scales2, rots, opacity, color, cam, width, height,
+                   active=None):
+    """The surfel blend's inputs as ops/rasterize2d.py makes them:
+    preprocess_2d, binning and the instance pack. Returns (attrs, ranges,
+    tiles_x, tiles_y)."""
+    from gssr_tpu_torch.ops.binning import bin_gaussians
+    from gssr_tpu_torch.ops.blend import CHUNK
+    from gssr_tpu_torch.ops.blend2d import pack_instance_attrs_2d
+    from gssr_tpu_torch.ops.projection import TILE
+    from gssr_tpu_torch.ops.projection2d import preprocess_2d
+    from gssr_tpu_torch.ops.rasterize import pad_to_tiles
+    pw, ph = pad_to_tiles(width, height)
+    proj = preprocess_2d(means, scales2, rots, cam, pw, ph, opacity,
+                         active_mask=active)
+    b = bin_gaussians(proj.rect, proj.depth, proj.tiles_touched, pw // TILE,
+                      ph // TILE, chunk=CHUNK)
+    attrs = pack_instance_attrs_2d(proj.mean2d, proj.Tmat, proj.normal,
+                                   color, opacity, b)
+    return attrs, b.tile_ranges, pw // TILE, ph // TILE
+
+
 # ---------------------------------------------------------------------------
 # 1. build
 # ---------------------------------------------------------------------------
@@ -127,10 +176,13 @@ def phase_build():
     from gssr_tpu_torch.ops import _kernels
     info = _kernels.build()
     _kernels.load()
-    print(f"[build] {info['path'].name} built in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"[build] {line.strip()}")
+    print(f"[build] {len(info['libs'])} libraries in {info['seconds']:.2f} s "
+          f"(one nvcc per source, in parallel)")
+    for src, lib in info["libs"].items():
+        print(f"[build] {src} -> {lib['path'].name} in {lib['seconds']:.2f} s")
+        for line in lib["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"[build] {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -140,28 +192,11 @@ def phase_build():
 def phase_kernels(dev):
     from gssr_tpu_torch.ops import blend as B
     g = torch.Generator(device="cpu").manual_seed(1)
-
-    def u(n, k, lo, hi):
-        return lo + (hi - lo) * torch.rand((n, k), generator=g)
-
-    n, n_dense = 20_000, 2_000
-    means = torch.cat([u(n - n_dense, 1, -2.0, 2.0), u(n - n_dense, 1, -2.0,
-                       2.0), u(n - n_dense, 1, -1.0, 1.0)], 1)
-    # a dense stack of nearly-opaque gaussians in front of one spot:
-    # transmittance collapses there and the early stop fires
-    dense = torch.tensor([0.5, -0.5, 0.0]) + 0.04 * torch.randn(
-        (n_dense, 3), generator=g)
-    means = torch.cat([means, dense])
-    scales = torch.cat([u(n - n_dense, 3, 0.005, 0.06),
-                        u(n_dense, 3, 0.02, 0.05)])
-    rots = torch.randn((n, 4), generator=g)
-    opacity = torch.cat([u(n - n_dense, 1, 0.05, 0.95),
-                         u(n_dense, 1, 0.9, 0.99)])[:, 0]
-    colors = u(n, 3, 0.0, 1.0)
+    n = 20_000
+    scene = overdraw_scene(g, n, 2_000, scale_dim=3)
     cam = camera(256, 256).arrays(dev)
-    attrs, ranges, tx, ty = blend_inputs(
-        *(x.to(dev) for x in (means, scales, rots, opacity, colors)), cam,
-        256, 256)
+    attrs, ranges, tx, ty = blend_inputs(*(x.to(dev) for x in scene), cam,
+                                         256, 256)
     out_k = B.blend_fwd(attrs, ranges, tx, ty)
     out_p = B.blend_fwd_plain(attrs, ranges, tx, ty)
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
@@ -187,6 +222,68 @@ def phase_kernels(dev):
     print(f"[kernels] blend_bwd max|err| {max_err(d_k, d_p):.3e}  "
           f"{bwd_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  "
           f"deterministic: yes")
+
+
+def overdraw_scene(g, n, n_dense, scale_dim):
+    """n random primitives, n_dense of them a stack of nearly-opaque ones
+    in front of one spot, so that transmittance collapses there and the
+    early stop fires."""
+    def u(m, k, lo, hi):
+        return lo + (hi - lo) * torch.rand((m, k), generator=g)
+    means = torch.cat([u(n - n_dense, 1, -2.0, 2.0), u(n - n_dense, 1, -2.0,
+                       2.0), u(n - n_dense, 1, -1.0, 1.0)], 1)
+    dense = torch.tensor([0.5, -0.5, 0.0]) + 0.04 * torch.randn(
+        (n_dense, 3), generator=g)
+    means = torch.cat([means, dense])
+    scales = torch.cat([u(n - n_dense, scale_dim, 0.005, 0.06),
+                        u(n_dense, scale_dim, 0.02, 0.05)])
+    rots = torch.randn((n, 4), generator=g)
+    opacity = torch.cat([u(n - n_dense, 1, 0.05, 0.95),
+                         u(n_dense, 1, 0.9, 0.99)])[:, 0]
+    colors = u(n, 3, 0.0, 1.0)
+    return means, scales, rots, opacity, colors
+
+
+def phase_kernels2d(dev):
+    """Both surfel kernels against their plain versions at 256x256 with
+    ~20k random surfels and a dense overdraw stack: the early stop and
+    the median both fire; the backward runs twice, bit for bit."""
+    from gssr_tpu_torch.ops import blend2d as B
+    g = torch.Generator(device="cpu").manual_seed(2)
+    n = 20_000
+    scene = overdraw_scene(g, n, 2_000, scale_dim=2)
+    # the dense stack faces the camera, so its disks cover the spot
+    scene[2][-2_000:] = torch.tensor([1.0, 0.0, 0.0, 0.0]) \
+        + 0.1 * torch.randn((2_000, 4), generator=g)
+    cam = camera(256, 256).arrays(dev)
+    attrs, ranges, tx, ty = blend2d_inputs(*(x.to(dev) for x in scene), cam,
+                                           256, 256)
+    out_k = B.blend2d_fwd(attrs, ranges, tx, ty)
+    out_p = B.blend2d_fwd_plain(attrs, ranges, tx, ty)
+    torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    assert torch.equal(out_k[..., B.O_SELPOS], out_p[..., B.O_SELPOS])
+    saturated = int((out_k[..., B.O_T] < 1e-3).sum())
+    medians = int((out_k[..., B.O_SELPOS] >= 0).sum())
+    assert saturated > 0, "the overdraw stack did not saturate"
+    assert medians > 0, "no pixel has a median"
+    cot = torch.randn(out_k.shape, generator=g).to(dev)
+    cot[..., list(B.NO_GRAD_ROWS)] = 0.0
+    d_k = B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty)
+    d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
+    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
+    assert_rows_close(d_k, d_p, B.LIVE_ATTRS2)
+    assert torch.equal(d_k, B.blend2d_bwd(attrs, ranges, out_k, cot, tx,
+                                          ty)), \
+        "the surfel backward kernel is not deterministic"
+    fwd_ms = median_ms(lambda: B.blend2d_fwd(attrs, ranges, tx, ty), 20)
+    bwd_ms = median_ms(lambda: B.blend2d_bwd(attrs, ranges, out_k, cot, tx,
+                                             ty), 20)
+    print(f"[kernels2d] 256x256, {n} surfels, {attrs.shape[1]} instance "
+          f"slots, {saturated} saturated pixels, {medians} with a median")
+    print(f"[kernels2d] blend2d_fwd max|err| {max_err(out_k, out_p):.3e}  "
+          f"{fwd_ms:.4f} ms")
+    print(f"[kernels2d] blend2d_bwd max|err| {max_err(d_k, d_p):.3e}  "
+          f"{bwd_ms:.4f} ms  deterministic: yes")
 
 
 # ---------------------------------------------------------------------------
@@ -254,15 +351,29 @@ def write_scene(root, dev, seed=0):
     colmap.write_model(intr, images, points, os.path.join(root, "sparse/0"))
 
 
-def phase_train(dev, root, card_line):
+def kernel_counts():
+    """Every kernel wrapper's launch count dict."""
+    from gssr_tpu_torch.ops import blend, blend2d
+    return (blend.LAUNCHES, blend2d.LAUNCHES)
+
+
+def reset_counts():
+    for counts in kernel_counts():
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: n for counts in kernel_counts() for k, n in counts.items()}
+
+
+def phase_train(dev, root, card_line, method):
+    """Train `method` through its CLI entry point on the scene under root;
+    returns the trainer and the launch counts of that run alone."""
     from gssr_tpu_torch import train
     from gssr_tpu_torch.configs.cli import parse_config
-    from gssr_tpu_torch.ops import blend as B
-    t0 = time.perf_counter()
-    write_scene(os.path.join(root, "scene"), dev)
-    print(f"[train] scene written in {time.perf_counter() - t0:.1f} s")
     config = parse_config([
-        "3dgs", "--source-path", os.path.join(root, "scene"),
+        method, "--source-path", os.path.join(root, "scene"),
         "--output-path", os.path.join(root, "out"),
         "--trainer.iterations", str(STEPS),
         "--trainer.test-iterations", str(STEPS),
@@ -271,14 +382,13 @@ def phase_train(dev, root, card_line):
         "--scene.gaussians.oneup-sh-interval", "5",
         "--scene.gaussians.densify-from-iter", "10",
         "--scene.gaussians.densification-interval", "10"])
-    for k in B.LAUNCHES:
-        B.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     t0 = time.perf_counter()
     trainer = train.main(config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(B.LAUNCHES)
+    launches = read_counts()
 
     scene, state = trainer.scene, trainer.scene.state
     hist = trainer.history
@@ -296,25 +406,56 @@ def phase_train(dev, root, card_line):
     ply = config.get_gaussian_dir() / f"iteration_{STEPS}" / \
         "point_cloud.ply"
     assert ply.exists() and ply.stat().st_size > 0, ply
-    for k, n in launches.items():
-        assert n >= STEPS, f"{k} launched {n} times in {STEPS} steps"
+    for k in PATH_KERNELS[method]:
+        assert launches[k] >= STEPS, \
+            f"{k} launched {launches[k]} times in {STEPS} steps"
     step_ms = sorted(1e3 * (b[3] - a[3]) for a, b in zip(hist[1:], hist[2:]))
     med = statistics.median(step_ms)
     # the highest percentile with ten samples above it
     tail_n = len(step_ms) - 10
     tail = step_ms[tail_n - 1] if tail_n > 0 else float("nan")
     psnr = trainer.evals[STEPS]["eval_psnr"]
-    print(f"[train] {STEPS} steps in {wall:.1f} s (build, eval and save "
-          f"included); loss epoch 1 {first:.5f} -> epoch "
-          f"{last_epoch // N_CAMS} {last:.5f}")
-    print(f"[train] n_active {n0} -> {int(state.n_active)} of capacity "
+    tag = f"[train {method}]"
+    print(f"{tag} {STEPS} steps in {wall:.1f} s (eval and save included); "
+          f"loss epoch 1 {first:.5f} -> epoch {last_epoch // N_CAMS} "
+          f"{last:.5f}")
+    print(f"{tag} n_active {n0} -> {int(state.n_active)} of capacity "
           f"{state.active.shape[0]}; launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[train] median step {med:.2f} ms, p{100 * tail_n / len(step_ms):.0f}"
-          f" {tail:.2f} ms (n={len(step_ms)}), "
-          f"{WIDTH * HEIGHT / med / 1e3:.2f} Mpix/s, num_rendered "
-          f"{hist[-1][2]}, eval PSNR {psnr:.3f} dB  | {card_line}")
+    print(f"{tag} median step {med:.2f} ms, "
+          f"p{100 * tail_n / len(step_ms):.0f} {tail:.2f} ms "
+          f"(n={len(step_ms)}), {WIDTH * HEIGHT / med / 1e3:.2f} Mpix/s, "
+          f"num_rendered {hist[-1][2]}, eval PSNR {psnr:.3f} dB  | "
+          f"{card_line}", flush=True)
     return trainer, launches
+
+
+def phase_mesh(trainer, card_line):
+    """`python -m gssr_tpu_torch.extract_mesh` on the 2dgs run, in process:
+    bounded at a grid of about 256^3, then unbounded at 128^3."""
+    from gssr_tpu_torch import extract_mesh
+    from gssr_tpu_torch.utils.mesh_extract import read_mesh_ply
+    cfg = str(trainer.config.get_base_dir() / "config.yml")
+    runs = {}
+    for name, extra in MESH_RUNS:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = extract_mesh.main(["--load-config", cfg, "--skip-images",
+                                 *extra])
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        assert launches["blend2d_fwd"] >= N_CAMS, launches
+        verts, faces = read_mesh_ply(str(res["mesh_path"]))
+        assert len(verts) > 0 and len(faces) > 0, (name, len(verts))
+        assert np.isfinite(verts).all()
+        sec = res["seconds"]
+        print(f"[mesh {name}] {len(verts)} verts, {len(faces)} faces in "
+              f"{wall:.1f} s: render {sec['render']:.2f} s, fusion "
+              f"{sec['fusion']:.2f} s, marching tetrahedra "
+              f"{sec['mtet']:.2f} s; launches {launches}  | {card_line}",
+              flush=True)
+        runs[name] = launches
+    return runs
 
 
 def phase_profile(trainer, path, card_line):
@@ -349,17 +490,55 @@ def phase_profile(trainer, path, card_line):
                 f"device busy {busy / 1e3:.3f} ms\n")
         f.write(avgs.table(sort_by="self_cuda_time_total", row_limit=60))
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    print(f"[profile] 3 steps: wall {wall_us / 1e3:.3f} ms, device busy "
+    tag = f"[profile {trainer.config.method_name}]"
+    print(f"{tag} 3 steps: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} %)  | "
           f"{card_line}")
     for e in top:
-        print(f"[profile] {dev_us(e) / 3e3:9.3f} ms/step  {e.count // 3:5d} "
+        print(f"{tag} {dev_us(e) / 3e3:9.3f} ms/step  {e.count // 3:5d} "
               f"calls/step  {e.key[:90]}")
 
 
 # ---------------------------------------------------------------------------
-# 4. the kernels at the main path's own inputs
+# 4. the kernels at the main paths' own inputs
 # ---------------------------------------------------------------------------
+
+def bound(ops, nbytes):
+    """The least time the card could take: operations at the FP32 peak or
+    bytes at the memory rate, whichever is longer. (ms, what bounds it)"""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def report_row(name, source, replaces, launches, err, fn, plain, ops,
+               nbytes):
+    bound_ms, bound_by = bound(ops, nbytes)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": median_ms(fn, 20), "plain_ms": median_ms(plain, 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def assert_live_rows(d_plain, live):
+    """Every live row must carry gradients well above the tolerance, so
+    that a zeroed or misplaced row cannot pass the comparison."""
+    row_max = d_plain[:live].abs().amax(dim=1)
+    assert bool((row_max > 100 * BWD_TOL["atol"]).all()), row_max.tolist()
+
+
+def assert_rows_close(d_k, d_p, live):
+    """Each live gradient row against its plain version in units of the
+    row's largest plain value (the absolute tolerance taken relative to
+    it, the relative one as it is), so that a zeroed or swapped row fails
+    however small its gradients are. The surfel rows of CA are: dL/dCA
+    carries 1/pz, and pz grows with the square of the image size."""
+    scale = d_p[:live].abs().amax(dim=1, keepdim=True)
+    assert bool((scale > 0).all()), scale.flatten().tolist()
+    torch.testing.assert_close(d_k[:live] / scale, d_p[:live] / scale,
+                               **BWD_TOL)
+    assert torch.equal(d_k[live:], torch.zeros_like(d_k[live:]))
+
 
 def phase_report(trainer, launches, dev):
     from types import SimpleNamespace
@@ -386,15 +565,12 @@ def phase_report(trainer, launches, dev):
     image = (f[..., :3] + f[..., 3:4] * scene.background)[:scene.height,
                                                           :scene.width]
     loss = sum(scene.loss_terms(SimpleNamespace(image=image),
-                                scene.gt_device(cam_h)).values())
+                                scene.gt_device(cam_h), STEPS, cam).values())
     (cot,) = torch.autograd.grad(loss, f)
     cot = (cot / cot.abs().max()).contiguous()
     d_k = B.blend_bwd(attrs, ranges, out_k, cot, tx, ty)
     d_p = B.blend_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    # every live row must carry gradients well above the tolerance, so that
-    # a zeroed or misplaced row cannot pass the comparison
-    row_max = d_p[:B.LIVE_ATTRS].abs().amax(dim=1)
-    assert bool((row_max > 100 * BWD_TOL["atol"]).all()), row_max.tolist()
+    assert_live_rows(d_p, B.LIVE_ATTRS)
     torch.testing.assert_close(d_k, d_p, **BWD_TOL)
     assert torch.equal(d_k, B.blend_bwd(attrs, ranges, out_k, cot, tx, ty))
 
@@ -402,34 +578,116 @@ def phase_report(trainer, launches, dev):
     n_inst = attrs.shape[1]
     hw = out_k.shape[0] * out_k.shape[1]
     live_bytes = B.LIVE_ATTRS * n_inst * 4 + ranges.numel() * 4
-    fwd_bytes = live_bytes + hw * 16
-    bwd_bytes = live_bytes + 2 * hw * 16 + attrs.numel() * 4
-
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
-        return (1e3 * max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes")
-
-    rows = []
-    for name, line, fn, plain, err, ops, nbytes in (
-            ("blend_fwd", 158, lambda: B.blend_fwd(attrs, ranges, tx, ty),
-             lambda: B.blend_fwd_plain(attrs, ranges, tx, ty),
-             max_err(out_k, out_p), FWD_OPS_PER_PAIR * pairs, fwd_bytes),
-            ("blend_bwd", 265,
-             lambda: B.blend_bwd(attrs, ranges, out_k, cot, tx, ty),
-             lambda: B.blend_bwd_plain(attrs, ranges, out_k, cot, tx, ty),
-             max_err(d_k, d_p), BWD_OPS_PER_PAIR * pairs, bwd_bytes)):
-        bound_ms, bound_by = bound(ops, nbytes)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "gssr_tpu_torch/csrc/blend.cu",
-            "replaces": f"gssr_tpu/ops/blend_pallas.py:{line}",
-            "launches": launches[name], "max_abs_err": err,
-            "ms": median_ms(fn, 20), "plain_ms": median_ms(plain, 3),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    print(f"[report] main-path blend inputs: {tx * 16}x{ty * 16} padded, "
+    src = "gssr_tpu_torch/csrc/blend.cu"
+    rows = [
+        report_row("blend_fwd", src, "gssr_tpu/ops/blend_pallas.py:158",
+                   launches["blend_fwd"], max_err(out_k, out_p),
+                   lambda: B.blend_fwd(attrs, ranges, tx, ty),
+                   lambda: B.blend_fwd_plain(attrs, ranges, tx, ty),
+                   FWD_OPS_PER_PAIR * pairs, live_bytes + hw * 16),
+        report_row("blend_bwd", src, "gssr_tpu/ops/blend_pallas.py:265",
+                   launches["blend_bwd"], max_err(d_k, d_p),
+                   lambda: B.blend_bwd(attrs, ranges, out_k, cot, tx, ty),
+                   lambda: B.blend_bwd_plain(attrs, ranges, out_k, cot, tx,
+                                             ty),
+                   BWD_OPS_PER_PAIR * pairs,
+                   live_bytes + 2 * hw * 16 + attrs.numel() * 4)]
+    print(f"[report 3dgs] blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs "
-          f"before saturation")
+          f"before saturation", flush=True)
+    return rows
+
+
+def phase_report2d(trainer, launches, dev):
+    """Both surfel kernels against their plain versions at the 2dgs path's
+    own inputs, under the cotangent of the 2dgs loss with both
+    regularisers live (past step 7000, lambda_dist 1000, depth_ratio 0.5)
+    plus a random one on median_normal, each channel group scaled to a
+    largest entry of 1."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from gssr_tpu_torch.ops import blend2d as B
+    from gssr_tpu_torch.ops.rasterize2d import surfel_outputs
+    from gssr_tpu_torch.ops.sh import sh_to_color
+    scene, state = trainer.scene, trainer.scene.state
+    g, p = scene.gaussians, state.params
+    cam_h = scene.dataloader.train_cameras[0]
+    cam = cam_h.arrays(dev)
+    with torch.no_grad():
+        color = sh_to_color(3, g.get_features(p), p["xyz"], cam.campos)
+        attrs, ranges, tx, ty = blend2d_inputs(
+            p["xyz"], g.get_scaling(p), g.get_rotation(p),
+            g.get_opacity(p)[:, 0], color, cam, scene.width, scene.height,
+            active=state.active)
+    out_k = B.blend2d_fwd(attrs, ranges, tx, ty)
+    out_p = B.blend2d_fwd_plain(attrs, ranges, tx, ty)
+    torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    assert torch.equal(out_k[..., B.O_SELPOS], out_p[..., B.O_SELPOS])
+
+    scene.config = dataclasses.replace(scene.config, lambda_dist=1000.0,
+                                       depth_ratio=0.5)
+    f = out_k.clone().requires_grad_(True)
+    out = SimpleNamespace(**surfel_outputs(
+        B.SurfelMaps(f), cam, scene.width, scene.height, scene.background,
+        scene.config.depth_ratio))
+    terms = scene.loss_terms(out, scene.gt_device(cam_h), 7001, cam)
+    terms_line = {k: round(float(v.detach()), 6) for k, v in terms.items()}
+    assert all(v > 0 for v in terms_line.values()), terms_line
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    probe = torch.randn(out.median_normal.shape, generator=gen).to(dev)
+    (cot,) = torch.autograd.grad(
+        sum(terms.values()) + (out.median_normal * probe).sum(), f)
+    cot[..., list(B.NO_GRAD_ROWS)] = 0.0
+    for lo, hi in ((B.O_RGB, B.O_RGB + 3), (B.O_NRM, B.O_NRM + 3),
+                   (B.O_D, B.O_D + 1), (B.O_DIST, B.O_DIST + 1),
+                   (B.O_T, B.O_T + 1), (B.O_MED, B.O_MED + 1),
+                   (B.O_MEDNRM, B.O_MEDNRM + 3)):
+        peak = cot[..., lo:hi].abs().max()
+        assert float(peak) > 0, (lo, hi)
+        cot[..., lo:hi] /= peak
+    cot = cot.contiguous()
+    d_k = B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty)
+    d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
+    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
+    assert_rows_close(d_k, d_p, B.LIVE_ATTRS2)
+    assert torch.equal(d_k, B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty))
+    # the rows of the low-pass centre and of CA stay far below the others
+    # (dL/dCA carries 1/pz), so no one cotangent puts every row above
+    # 100 x atol while the largest rows' rounding stays inside atol; the
+    # per-row comparison above holds each in units of its own largest value
+    row_max = d_p[:B.LIVE_ATTRS2].abs().amax(dim=1)
+    print(f"[report 2dgs] largest plain gradient per live row: "
+          f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
+          f"{int((row_max > 100 * BWD_TOL['atol']).sum())} of "
+          f"{B.LIVE_ATTRS2} rows above 100 x atol")
+
+    pairs, contrib = B.blend2d_pair_count(attrs, ranges, tx, ty)
+    n_inst = attrs.shape[1]
+    hw = out_k.shape[0] * out_k.shape[1]
+    live_bytes = B.LIVE_ATTRS2 * n_inst * 4 + ranges.numel() * 4
+    out_bytes = hw * B.OUT2_ROWS * 4
+    src = "gssr_tpu_torch/csrc/blend2d.cu"
+    rows = [
+        report_row("blend2d_fwd", src, "gssr_tpu/ops/blend2d_pallas.py:127",
+                   launches["blend2d_fwd"], max_err(out_k, out_p),
+                   lambda: B.blend2d_fwd(attrs, ranges, tx, ty),
+                   lambda: B.blend2d_fwd_plain(attrs, ranges, tx, ty),
+                   FWD2_OPS_PER_PAIR * pairs
+                   + FWD2_OPS_PER_CONTRIB * contrib,
+                   live_bytes + out_bytes),
+        report_row("blend2d_bwd", src, "gssr_tpu/ops/blend2d_pallas.py:269",
+                   launches["blend2d_bwd"], max_err(d_k, d_p),
+                   lambda: B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty),
+                   lambda: B.blend2d_bwd_plain(attrs, ranges, out_k, cot,
+                                               tx, ty),
+                   BWD2_OPS_PER_PAIR * pairs
+                   + BWD2_OPS_PER_CONTRIB * contrib,
+                   live_bytes + 2 * out_bytes + attrs.numel() * 4)]
+    print(f"[report 2dgs] surfel blend inputs: {tx * 16}x{ty * 16} padded, "
+          f"{n_inst} instance slots, {pairs} (pixel, instance) pairs before "
+          f"saturation, {contrib} contributing; loss terms {terms_line}",
+          flush=True)
     return rows
 
 
@@ -450,11 +708,20 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_build()
     phase_kernels(dev)
+    phase_kernels2d(dev)
     with tempfile.TemporaryDirectory() as root:
-        trainer, launches = phase_train(dev, root, card_line)
+        t1 = time.perf_counter()
+        write_scene(os.path.join(root, "scene"), dev)
+        print(f"[train] scene written in {time.perf_counter() - t1:.1f} s")
+        trainer3, launches3 = phase_train(dev, root, card_line, "3dgs")
+        trainer2, launches2 = phase_train(dev, root, card_line, "2dgs")
+        phase_mesh(trainer2, card_line)
         if args.profile:
-            phase_profile(trainer, args.profile, card_line)
-        rows = phase_report(trainer, launches, dev)
+            stem, ext = os.path.splitext(args.profile)
+            phase_profile(trainer3, args.profile, card_line)
+            phase_profile(trainer2, f"{stem}_2dgs{ext}", card_line)
+        rows = phase_report(trainer3, launches3, dev)
+        rows += phase_report2d(trainer2, launches2, dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -1,8 +1,8 @@
 """Method registry (port of gssr_tpu/configs/methods.py).
 
-The `3dgs` preset is ported; the reference's other eight methods are
-listed so that asking for one fails with a clear message until their
-slice lands.
+The `3dgs` and `2dgs` presets are ported; the reference's other seven
+methods are listed so that asking for one fails with a clear message
+until their slice lands.
 """
 from __future__ import annotations
 
@@ -31,12 +31,25 @@ def _vanilla():
             lambda_dssim=0.2))
 
 
-METHOD_FACTORIES: Dict[str, Callable[[], Config]] = {"3dgs": _vanilla}
+def _twodgs():
+    from gssr_tpu_torch.models.twod import TwoDGaussianConfig
+    from gssr_tpu_torch.scene.twodgs import TwoDGSSceneConfig
+    return Config(
+        method_name="2dgs",
+        scene=TwoDGSSceneConfig(
+            dataloader=DataLoaderConfig(),
+            gaussians=TwoDGaussianConfig(),
+            depth_ratio=0.0, lambda_normal=0.05, lambda_dist=0.0))
 
-NOT_YET_PORTED = ("2dgs", "scaffold-gs", "octree-gs", "scaffold-2dgs",
+
+METHOD_FACTORIES: Dict[str, Callable[[], Config]] = {"3dgs": _vanilla,
+                                                     "2dgs": _twodgs}
+
+NOT_YET_PORTED = ("scaffold-gs", "octree-gs", "scaffold-2dgs",
                   "octree-2dgs", "pgsr", "scaffold-pgsr", "octree-pgsr")
 
-DESCRIPTIONS = {"3dgs": "Vanilla 3D Gaussian Splatting"}
+DESCRIPTIONS = {"3dgs": "Vanilla 3D Gaussian Splatting",
+                "2dgs": "2DGS surfel splatting"}
 
 
 def get_method_config(name: str) -> Config:
@@ -53,18 +66,25 @@ def get_method_config(name: str) -> Config:
 
 def build_scene(config: Config, device, **kwargs):
     """Instantiate the scene matching the scene config's type."""
+    from gssr_tpu_torch.scene.twodgs import TwoDGSScene, TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaScene, VanillaSceneConfig
-    if not isinstance(config.scene, VanillaSceneConfig):
+    scenes = {VanillaSceneConfig: VanillaScene,
+              TwoDGSSceneConfig: TwoDGSScene}
+    cls = scenes.get(type(config.scene))
+    if cls is None:
         raise NotImplementedError(
             f"no ported scene for {type(config.scene).__name__}")
-    return VanillaScene(config.scene, config.source_path, device,
-                        eval=config.eval, seed=config.machine.seed, **kwargs)
+    return cls(config.scene, config.source_path, device, eval=config.eval,
+               seed=config.machine.seed, **kwargs)
 
 
 def config_classes():
     """Name -> class map for YAML round trips."""
+    from gssr_tpu_torch.models.twod import TwoDGaussianConfig
     from gssr_tpu_torch.models.vanilla import VanillaGaussianConfig
+    from gssr_tpu_torch.scene.twodgs import TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaSceneConfig
     classes = [Config, MachineConfig, TrainerConfig, DataLoaderConfig,
-               VanillaGaussianConfig, VanillaSceneConfig]
+               VanillaGaussianConfig, VanillaSceneConfig,
+               TwoDGaussianConfig, TwoDGSSceneConfig]
     return {c.__name__: c for c in classes}

@@ -30,29 +30,14 @@
 // and every sum over pixels runs in a fixed order (xor-shuffle butterfly
 // within a warp, then the 8 warp partials in warp order): no atomics.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;
-constexpr int WARPS = PIX / 32;
-constexpr int CHUNK = 128;
-constexpr int LIVE = 9;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_EPS = 1e-4f;
-enum { MX, MY, CXX, CXY, CYY, OP, CR, CG, CB };
+using namespace gssr;
 
-// stage one chunk's live attribute rows in shared memory
-__device__ __forceinline__ void load_chunk(float (*s)[CHUNK],
-                                           const float* __restrict__ attrs,
-                                           long long n_inst, long long base) {
-  for (int j = threadIdx.x; j < LIVE * CHUNK; j += PIX) {
-    const int r = j / CHUNK, c = j % CHUNK;
-    s[r][c] = attrs[r * n_inst + base + c];
-  }
-}
+constexpr int LIVE = 9;
+enum { MX, MY, CXX, CXY, CYY, OP, CR, CG, CB };
 
 struct Alpha {
   float a, dx, dy, g, raw;
@@ -94,7 +79,7 @@ blend_fwd_kernel(const float* __restrict__ attrs, long long n_inst,
   for (long long base = ranges[t]; base < end; base += CHUNK) {
     // also the barrier before the staging buffer is overwritten
     if (!__syncthreads_or(D >= T_EPS)) break;
-    load_chunk(s, attrs, n_inst, base);
+    load_chunk<LIVE>(s, attrs, n_inst, base);
     __syncthreads();
     for (int i = 0; i < CHUNK && D >= T_EPS; ++i) {
       const Alpha al = chunk_alpha(s, i, px, py);
@@ -142,7 +127,7 @@ blend_bwd_kernel(const float* __restrict__ attrs, long long n_inst,
   for (long long base = ranges[t]; base < end; base += CHUNK) {
     // chunks after the tile saturates keep their zero gradient
     if (!__syncthreads_or(D >= T_EPS)) break;
-    load_chunk(s, attrs, n_inst, base);
+    load_chunk<LIVE>(s, attrs, n_inst, base);
     __syncthreads();
     for (int i = 0; i < CHUNK; ++i) {
       float v[LIVE];
@@ -206,10 +191,6 @@ blend_bwd_kernel(const float* __restrict__ attrs, long long n_inst,
 }  // namespace
 
 extern "C" {
-
-const char* gssr_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 // out [H, W, 4]; one block per tile
 int gssr_blend_fwd(const float* attrs, long long n_inst, const int* ranges,

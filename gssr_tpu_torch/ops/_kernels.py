@@ -1,10 +1,12 @@
 """Build and bind the hand-written CUDA kernels of csrc/.
 
-At first use the sources are compiled with nvcc for sm_90a into a shared
-library with a plain C interface, `build/gssr_tpu_torch/libblend-<hash>.so`
-under the repository root, and loaded through ctypes. The hash covers the
-sources and flags, so an edited source is rebuilt. Importing this module
-touches neither CUDA nor nvcc: CPU-only test runs import every module.
+At first use each source is compiled with nvcc for sm_90a into its own
+shared library with a plain C interface,
+`build/gssr_tpu_torch/lib<source>-<hash>.so` under the repository root;
+the nvcc runs for all sources start together. The libraries are loaded
+through ctypes. A hash covers the source, the shared header and the flags,
+so an edited source is rebuilt. Importing this module touches neither CUDA
+nor nvcc: CPU-only test runs import every module.
 """
 from __future__ import annotations
 
@@ -20,18 +22,24 @@ import torch
 
 _SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gssr_tpu_torch"
-SOURCES = ("blend.cu",)
+HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# C entry points: (argtypes without the trailing stream)
-_SIGNATURES = {
-    "gssr_blend_fwd": (_P, _I64, _P, _I32, _I32, _P),
-    "gssr_blend_bwd": (_P, _I64, _P, _I32, _I32, _P, _P, _P),
+# source -> its C entry points: (argtypes without the trailing stream)
+SOURCES = {
+    "blend.cu": {
+        "gssr_blend_fwd": (_P, _I64, _P, _I32, _I32, _P),
+        "gssr_blend_bwd": (_P, _I64, _P, _I32, _I32, _P, _P, _P),
+    },
+    "blend2d.cu": {
+        "gssr_blend2d_fwd": (_P, _I64, _P, _I32, _I32, _P),
+        "gssr_blend2d_bwd": (_P, _I64, _P, _I32, _I32, _P, _P, _P),
+    },
 }
 
-_lib = None
+_fns = None
 
 
 def _nvcc() -> str:
@@ -42,48 +50,64 @@ def _nvcc() -> str:
     return exe
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in (source,) + HEADERS:
         h.update((_SRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libblend-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
-    """Compile the kernels unless this source hash is already built.
-    Returns {"path", "seconds", "log"} (log: nvcc/ptxas output)."""
-    so = library_path()
-    log = so.with_suffix(".log")
-    if so.exists():
-        return {"path": so, "seconds": 0.0, "log": log.read_text()}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
-           *[str(_SRC_DIR / s) for s in SOURCES]]
+    """Compile every source whose hash is not built yet, one nvcc each, all
+    at once. Returns {"seconds": wall time, "libs": {source: {"path",
+    "seconds", "log"}}} (log: nvcc/ptxas output; seconds 0 if cached)."""
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return {"path": so, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    libs, procs = {}, {}
+    for src in SOURCES:
+        so = library_path(src)
+        if so.exists():
+            libs[src] = {"path": so, "seconds": 0.0,
+                         "log": so.with_suffix(".log").read_text()}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(_SRC_DIR / src)]
+        procs[src] = (so, tmp, cmd, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for src, (so, tmp, cmd, t_start, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{log}")
+            continue
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+        libs[src] = {"path": so, "seconds": time.perf_counter() - t_start,
+                     "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {"seconds": time.perf_counter() - t0, "libs": libs}
 
 
-def load():
-    """The kernel library, built on first use."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()["path"]))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = [*args, _P]
-            fn.restype = ctypes.c_int
-        lib.gssr_error_string.argtypes = [ctypes.c_int]
-        lib.gssr_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def load() -> dict:
+    """Entry point name -> bound C function, the libraries built on first
+    use."""
+    global _fns
+    if _fns is None:
+        libs = build()["libs"]
+        fns = {}
+        for src, entries in SOURCES.items():
+            lib = ctypes.CDLL(str(libs[src]["path"]))
+            lib.gssr_error_string.argtypes = [ctypes.c_int]
+            lib.gssr_error_string.restype = ctypes.c_char_p
+            for name, args in entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [*args, _P]
+                fn.restype = ctypes.c_int
+                fns[name] = (fn, lib.gssr_error_string)
+        _fns = fns
+    return _fns
 
 
 def launch(name: str, device: torch.device, *args):
@@ -91,10 +115,10 @@ def launch(name: str, device: torch.device, *args):
     CUDA error the launch reports."""
     if device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {device}")
-    lib = load()
+    fn, error_string = load()[name]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, ctypes.c_void_p(stream))
+        err = fn(*args, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
-                           f"({lib.gssr_error_string(err).decode()})")
+                           f"({error_string(err).decode()})")

@@ -66,13 +66,15 @@ def _scatter_drop(target, pos, vals, reduce=None):
 
 
 def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
-                  tile_mask, chunk: int = 128) -> Binning:
+                  tile_mask=None, chunk: int = 128) -> Binning:
     """Build the depth-sorted, chunk-padded per-tile instance list.
 
     rect: [N,4] int32 tile rects (exclusive max); depth: [N] float32
     view-space depth; tiles_touched: [N] int32 rect area (0 = culled);
     tile_mask: [N] int32 exact ellipse-tile bits over the first 32 rect
-    tiles (non-hit rect slots become hit = 0 no-op lanes).
+    tiles (non-hit rect slots become hit = 0 no-op lanes), or None: every
+    rect slot of a real instance is a hit (the 2DGS path). Fillers get
+    hit = 0 either way.
     """
     dev = depth.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -119,14 +121,19 @@ def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
     rect_w = torch.clamp(rect[:, 2] - rect[:, 0], min=1)
     rect_pack = rect[:, 0] | (rect[:, 1] << 10) | ((rect_w - 1) << 20)
     rcp_w = (1.0 / rect_w.float()).view(torch.int32)
-    recs = torch.stack([rect_pack, starts, depth.float().view(torch.int32),
-                        rcp_w, tile_mask.to(torch.int32)], dim=1)
-    r = recs[g_c.long()]
+    cols = [rect_pack, starts, depth.float().view(torch.int32), rcp_w]
+    if tile_mask is not None:
+        cols.append(tile_mask.to(torch.int32))
+    r = torch.stack(cols, dim=1)[g_c.long()]
     x0 = r[:, 0] & 0x3FF
     y0 = (r[:, 0] >> 10) & 0x3FF
     rw = ((r[:, 0] >> 20) & 0x3FF) + 1
     local = ii - r[:, 1]
-    hit = (((r[:, 4] >> torch.clamp(local, max=31)) & 1) == 1) | (local >= 32)
+    if tile_mask is not None:
+        hit = (((r[:, 4] >> torch.clamp(local, max=31)) & 1) == 1) \
+            | (local >= 32)
+    else:
+        hit = torch.ones_like(local, dtype=torch.bool)
     # local // rw through the f32 reciprocal: off by at most one, fixed by
     # the remainder test
     rcp = r[:, 3].view(torch.float32)

@@ -55,8 +55,7 @@ class VanillaScene:
         self.cameras_extent = self.dataloader.cameras_extent
         self.background = torch.as_tensor(self.dataloader.background,
                                           device=self.device)
-        self.gaussians = VanillaGaussians(config.gaussians,
-                                          spatial_lr_scale=self.cameras_extent)
+        self.gaussians = self.make_gaussians()
         pcd = self.dataloader.point_cloud
         self.state = self.gaussians.create_from_points(
             pcd.points, pcd.colors, self.device)
@@ -65,6 +64,10 @@ class VanillaScene:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._gt_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+
+    def make_gaussians(self) -> VanillaGaussians:
+        return VanillaGaussians(self.config.gaussians,
+                                spatial_lr_scale=self.cameras_extent)
 
     # ------------------------------------------------------------------
     def render_params(self, params, camera, sh_degree: int, active, bg,
@@ -77,7 +80,9 @@ class VanillaScene:
             active_mask=active, scaling_modifier=self.config.scaling_modifier,
             mean2d_offset=mean2d_offset)
 
-    def loss_terms(self, out, gt):
+    def loss_terms(self, out, gt, step: int, camera):
+        """Method losses of a render; `camera` (CameraArrays) is the one
+        it came from. Subclasses extend them."""
         lam = self.config.lambda_dssim
         return {
             "L1_loss": (1.0 - lam) * l1_loss(out.image, gt),
@@ -117,7 +122,7 @@ class VanillaScene:
                                       requires_grad=True)
         out = self.render_params(params, cam, sh_degree, state.active, bg,
                                  mean2d_offset=m2d_offset)
-        terms = self.loss_terms(out, gt)
+        terms = self.loss_terms(out, gt, step, cam)
         loss = sum(terms.values())
         inputs = [params[k] for k in PARAM_NAMES] + [m2d_offset]
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)

@@ -21,7 +21,12 @@ for name in names:
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "gssr_tpu"))
 assert not leaked, leaked
-assert "gssr_tpu_torch.ops.blend" in names and len(names) >= 20, names
+for must in ("ops.blend", "ops.blend2d", "ops.projection2d", "ops.rasterize2d",
+             "ops.sampling", "models.twod", "scene.twodgs", "utils.tsdf",
+             "utils.mtet", "utils.mesh_eval", "utils.mesh_extract",
+             "extract_mesh"):
+    assert "gssr_tpu_torch." + must in names, (must, names)
+assert len(names) >= 41, names
 print(len(names))
 """
 
