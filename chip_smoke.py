@@ -10,33 +10,45 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             and spills, and the card.
 2. kernels  each blend kernel against its plain PyTorch version on the
             card at 256x256: the vanilla pair with ~20k gaussians, the
-            surfel pair with ~20k surfels, each with a dense overdraw stack
-            (so the early stop fires, and for the surfels the median too)
-            and a seeded randn cotangent; each backward runs twice and must
-            agree bit for bit.
+            surfel pair with ~20k surfels, the planar (PGSR) forward,
+            observe and backward with ~20k gaussians and random normals and
+            plane distances, each with a dense overdraw stack (so the early
+            stop fires; for the surfels the median too, for the planar
+            observe count its T > 0.5 cut-off) and a seeded randn
+            cotangent; each backward runs twice and must agree bit for bit,
+            and the planar backward's observe row must equal the observe
+            kernel's counts.
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
-            initial points, GT rendered by the port from a separate random
-            gaussian set): `python -m gssr_tpu_torch.train 3dgs`, then
-            `... 2dgs`, STEPS steps each with SH degree 3 and two densify
-            passes. Asserts finite losses that fall, a changed n_active, a
-            written PLY, and that every step launched the path's two
-            kernels; prints the median step, its tail, Mpix/s, peak memory.
-   mesh     `python -m gssr_tpu_torch.extract_mesh` on the 2dgs run, in
-            process: bounded at a 257^3 grid, then unbounded at 128^3.
-            Asserts non-empty meshes; prints their sizes and the seconds
-            of rendering, fusion and marching tetrahedra.
-4. report   all four kernels against their plain versions again, at their
+            initial points seen by the cameras whose frustum holds them, GT
+            rendered by the port from a separate random gaussian set):
+            `python -m gssr_tpu_torch.train 3dgs`, then `... 2dgs`, then
+            `... pgsr` with its two-camera step after step MULTI_VIEW_FROM,
+            STEPS steps each with SH degree 3 and two densify passes.
+            Asserts finite losses, image losses that fall, a changed
+            n_active, a written PLY, and that every train render launched
+            the path's forward and backward kernels (two renders on a
+            multi-view step); for pgsr also ring neighbours and no camera
+            its own, and geo and NCC losses above 0 on every multi-view
+            step. Prints the median step (for pgsr also single- and
+            multi-view apart), its tail, Mpix/s, peak memory.
+   mesh     `python -m gssr_tpu_torch.extract_mesh` in process: the 2dgs
+            run bounded at a 257^3 grid and unbounded at 128^3, the pgsr run
+            bounded, its renders launching the observe kernel once per
+            camera. Asserts non-empty meshes; prints their sizes and the
+            seconds of rendering, fusion and marching tetrahedra.
+4. report   all seven kernels against their plain versions again, at their
             main path's own inputs (the trained model, one of its cameras):
             the vanilla pair under the cotangent of its loss, the surfel
             pair under that of the 2dgs loss with both regularisers live
-            plus a random one on median_normal, each scaled to unit size;
-            with times and bounds. Prints the {"kernels": [...]} line, the
-            card, and last the {"ok": true, "device": {...}} line.
+            plus a random one on median_normal, the planar kernels under
+            that of the pgsr multi-view loss, each channel group scaled to
+            unit size; with times and bounds. Prints the {"kernels": [...]}
+            line, the card, and last the {"ok": true, "device": {...}} line.
 
 --profile FILE adds three profiled train steps to each path after phase 3
-and writes torch.profiler's per-kernel tables to FILE (3dgs) and
-FILE with `_2dgs` before its suffix.
+and writes torch.profiler's per-kernel tables to FILE (3dgs) and to FILE
+with `_2dgs` and `_pgsr` before its suffix.
 """
 from __future__ import annotations
 
@@ -68,6 +80,16 @@ FWD2_OPS_PER_PAIR = 49
 FWD2_OPS_PER_CONTRIB = 30
 BWD2_OPS_PER_PAIR = 49
 BWD2_OPS_PER_CONTRIB = 103
+# the same for the planar kernels of gssr_tpu_torch/csrc/blend_pgsr.cu: per
+# evaluated pair the gaussian (17) and the walk (5), and for the observe
+# count its one comparison more; per contributing pair the weight, 7
+# channel sums and T forward, and backward the weight, u (7 FMAs), the
+# prefix, da, 15 gradient terms and one add a row for the sum over pixels
+FWDP_OPS_PER_PAIR = 22
+FWDP_OPS_PER_CONTRIB = 16
+OBSP_OPS_PER_PAIR = 23
+BWDP_OPS_PER_PAIR = 22
+BWDP_OPS_PER_CONTRIB = 69
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-4)
 BWD_TOL = dict(atol=2e-4, rtol=2e-3)
@@ -79,14 +101,21 @@ N_GT_GAUSSIANS = 50_000
 # SH degree 3 from step 15 (oneup every 5), densify after steps 20 and 30,
 # four whole epochs of the N_CAMS cameras
 STEPS = 32
-# extract_mesh's options for the 2dgs run: the ring has radius 4, so the
-# bounded grid spans 6 units at a 256^3 resolution
+# pgsr's two-camera step runs after this step: steps 17-32
+MULTI_VIEW_FROM = 16
+# extract_mesh's options: the ring has radius 4, so the bounded grid spans
+# 6 units at a 256^3 resolution. The 2dgs run is meshed both ways, the
+# pgsr run bounded.
 MESH_RUNS = (("bounded", ["--depth-trunc", "6.0", "--voxel-size", "0.0234",
                           "--sdf-trunc", "0.08"]),
              ("unbounded", ["--unbounded", "--resolution", "128"]))
-# the kernels each main path must launch at every step
+MESH_METHODS = {"2dgs": ("bounded", "unbounded"), "pgsr": ("bounded",)}
+# the kernels each main path must launch at every render of a train step
 PATH_KERNELS = {"3dgs": ("blend_fwd", "blend_bwd"),
-                "2dgs": ("blend2d_fwd", "blend2d_bwd")}
+                "2dgs": ("blend2d_fwd", "blend2d_bwd"),
+                "pgsr": ("blend_pgsr_fwd", "blend_pgsr_bwd")}
+# each path's options beyond the common ones
+METHOD_ARGS = {"pgsr": ["--scene.multi-view-from", str(MULTI_VIEW_FROM)]}
 
 
 def card() -> str:
@@ -166,6 +195,37 @@ def blend2d_inputs(means, scales2, rots, opacity, color, cam, width, height,
     attrs = pack_instance_attrs_2d(proj.mean2d, proj.Tmat, proj.normal,
                                    color, opacity, b)
     return attrs, b.tile_ranges, pw // TILE, ph // TILE
+
+
+@torch.no_grad()
+def pgsr_inputs(means, scales, rots, opacity, color, normal, distance, cam,
+                width, height, active=None):
+    """The planar blend's inputs as ops/rasterize_pgsr.py makes them: the
+    vanilla preprocess with its tile mask, binning and the planar pack
+    with zero observe and abs columns. Returns (attrs, binning, tiles_x,
+    tiles_y)."""
+    from gssr_tpu_torch.ops.binning import bin_gaussians
+    from gssr_tpu_torch.ops.blend import CHUNK
+    from gssr_tpu_torch.ops.blend_pgsr import pack_instance_attrs_pgsr
+    from gssr_tpu_torch.ops.projection import TILE, preprocess
+    from gssr_tpu_torch.ops.rasterize import pad_to_tiles
+    pw, ph = pad_to_tiles(width, height)
+    proj = preprocess(means, scales, rots, cam, pw, ph, opacity,
+                      active_mask=active)
+    b = bin_gaussians(proj.rect, proj.depth, proj.tiles_touched, pw // TILE,
+                      ph // TILE, proj.tile_mask, chunk=CHUNK)
+    n = means.shape[0]
+    attrs = pack_instance_attrs_pgsr(proj.mean2d, proj.conic, color, opacity,
+                                     normal, distance, means.new_zeros(n, 1),
+                                     means.new_zeros(n, 2), b)
+    return attrs, b, pw // TILE, ph // TILE
+
+
+def per_gaussian(slot_values, b):
+    """Per-gaussian sums of per-instance-slot values [I] -> [N]."""
+    from gssr_tpu_torch.ops.blend import segment_sum_sorted
+    return segment_sum_sorted(slot_values[:, None], b.gid_reduce,
+                              b.seg_bounds)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +331,8 @@ def phase_kernels2d(dev):
     d_k = B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty)
     d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
     torch.testing.assert_close(d_k, d_p, **BWD_TOL)
-    assert_rows_close(d_k, d_p, B.LIVE_ATTRS2)
+    assert_rows_close(d_k, d_p, range(B.LIVE_ATTRS2))
+    assert_zero_rows(d_k, B.LIVE_ATTRS2)
     assert torch.equal(d_k, B.blend2d_bwd(attrs, ranges, out_k, cot, tx,
                                           ty)), \
         "the surfel backward kernel is not deterministic"
@@ -284,6 +345,67 @@ def phase_kernels2d(dev):
           f"{fwd_ms:.4f} ms")
     print(f"[kernels2d] blend2d_bwd max|err| {max_err(d_k, d_p):.3e}  "
           f"{bwd_ms:.4f} ms  deterministic: yes")
+
+
+def phase_kernels_pgsr(dev):
+    """The three planar kernels against their plain versions at 256x256
+    with ~20k gaussians carrying random camera-space normals and plane
+    distances, and a dense overdraw stack: the early stop and the T > 0.5
+    cut-off of the observe count both fire. The backward runs twice, bit
+    for bit, and its observe row equals the observe kernel's counts per
+    instance slot and summed per gaussian (on the card, what
+    tests/test_pgsr.py::test_observe_gradient_channel_matches_forward
+    checks)."""
+    from gssr_tpu_torch.ops import blend_pgsr as B
+    from gssr_tpu_torch.ops.blend import blend_pair_count
+    g = torch.Generator(device="cpu").manual_seed(4)
+    n = 20_000
+    scene = overdraw_scene(g, n, 2_000, scale_dim=3)
+    normal = torch.nn.functional.normalize(torch.randn((n, 3), generator=g),
+                                           dim=-1)
+    distance = 0.5 + 4.5 * torch.rand(n, generator=g)
+    cam = camera(256, 256).arrays(dev)
+    attrs, b, tx, ty = pgsr_inputs(
+        *(x.to(dev) for x in scene + (normal, distance)), cam, 256, 256)
+    ranges = b.tile_ranges
+    out_k = B.blend_pgsr_fwd(attrs, ranges, tx, ty)
+    out_p = B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty)
+    torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    saturated = int((out_k[..., B.PO_T] < 1e-3).sum())
+    assert saturated > 0, "the overdraw stack did not saturate"
+    obs_k = B.blend_pgsr_observe(attrs, ranges, tx, ty)
+    assert torch.equal(obs_k, B.blend_pgsr_obs_plain(attrs, ranges, tx, ty))
+    pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
+    observed = int(obs_k.sum())
+    assert 0 < observed < contrib, \
+        f"the T > 0.5 cut-off did not fire ({observed} of {contrib})"
+    cot = torch.randn(out_k.shape, generator=g).to(dev)
+    d_k = B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx, ty)
+    d_p = B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
+    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
+    # every row but the observe count is a gradient
+    assert_rows_close(d_k, d_p, [r for r in range(B.NUM_ATTRS_P)
+                                 if r != B.P_OBS])
+    assert torch.equal(d_k[B.P_OBS], d_p[B.P_OBS])
+    assert torch.equal(d_k, B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx,
+                                             ty)), \
+        "the planar backward kernel is not deterministic"
+    assert torch.equal(d_k[B.P_OBS], obs_k)
+    assert torch.equal(per_gaussian(d_k[B.P_OBS], b), per_gaussian(obs_k, b))
+    fwd_ms = median_ms(lambda: B.blend_pgsr_fwd(attrs, ranges, tx, ty), 20)
+    obs_ms = median_ms(lambda: B.blend_pgsr_observe(attrs, ranges, tx, ty),
+                       20)
+    bwd_ms = median_ms(lambda: B.blend_pgsr_bwd(attrs, ranges, out_k, cot,
+                                                tx, ty), 20)
+    print(f"[kernels pgsr] 256x256, {n} gaussians, {attrs.shape[1]} "
+          f"instance slots, {saturated} saturated pixels; {contrib} "
+          f"contributing pairs, {observed} of them observed (D > 0.5)")
+    print(f"[kernels pgsr] blend_pgsr_fwd max|err| "
+          f"{max_err(out_k, out_p):.3e}  {fwd_ms:.4f} ms")
+    print(f"[kernels pgsr] blend_pgsr_obs exact  {obs_ms:.4f} ms")
+    print(f"[kernels pgsr] blend_pgsr_bwd max|err| {max_err(d_k, d_p):.3e}  "
+          f"{bwd_ms:.4f} ms  deterministic: yes; observe row = observe "
+          f"kernel, per slot and per gaussian")
 
 
 # ---------------------------------------------------------------------------
@@ -306,11 +428,28 @@ def ring_cameras(width, height, n=N_CAMS, radius=4.0):
     return cams
 
 
+def frustum_points(cam, pts):
+    """The indices of the points that project inside the camera's image
+    in front of it, and their pixel positions [n, 2]."""
+    from gssr_tpu_torch.cameras import ZNEAR
+    p = pts @ cam.w2c[:3, :3].T + cam.w2c[:3, 3]
+    z = np.where(p[:, 2] > ZNEAR, p[:, 2], 1.0)
+    xy = np.stack([cam.fx * p[:, 0] / z + cam.cx,
+                   cam.fy * p[:, 1] / z + cam.cy], 1)
+    seen = np.flatnonzero((p[:, 2] > ZNEAR) & (xy[:, 0] >= 0)
+                          & (xy[:, 0] < cam.width) & (xy[:, 1] >= 0)
+                          & (xy[:, 1] < cam.height))
+    return seen, xy[seen]
+
+
 @torch.no_grad()
 def write_scene(root, dev, seed=0):
     """A COLMAP scene written by the port's dataio/colmap.py: ring
     cameras, N_POINTS random initial points, and GT frames that the port
-    renders from a separate random gaussian set."""
+    renders from a separate random gaussian set. Each image observes the
+    initial points inside its frustum (its point3D_ids, and the points'
+    tracks to match): the covisibility from which PGSR picks each camera's
+    neighbours."""
     from PIL import Image
 
     from gssr_tpu_torch.dataio import colmap
@@ -326,8 +465,7 @@ def write_scene(root, dev, seed=0):
               opacity=f32(rng.uniform(0.3, 0.9, n)),
               colors=f32(rng.uniform(0, 1, (n, 3))))
     os.makedirs(os.path.join(root, "images"))
-    images = {}
-    for i, c in enumerate(cams):
+    for c in cams:
         img = rasterize(gt["means"], gt["scales"], gt["rots"], gt["opacity"],
                         c.arrays(dev), WIDTH, HEIGHT,
                         torch.zeros(3, device=dev),
@@ -335,16 +473,22 @@ def write_scene(root, dev, seed=0):
         img8 = (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
         Image.fromarray(img8).save(os.path.join(root, "images",
                                                 f"{c.image_name}.png"))
-        images[i + 1] = colmap.ColmapImage(
-            i + 1, colmap.rotmat_to_qvec(c.R.T), c.T, 1,
-            f"{c.image_name}.png", np.zeros((0, 2)),
-            np.zeros(0, np.int64))
     pts = rng.uniform(-1, 1, (N_POINTS, 3))
     rgb = rng.integers(0, 256, (N_POINTS, 3)).astype(np.uint8)
-    points = {i + 1: colmap.ColmapPoint3D(i + 1, pts[i], rgb[i], 0.1,
-                                          np.zeros(0, np.int32),
-                                          np.zeros(0, np.int32))
-              for i in range(N_POINTS)}
+    images, track = {}, []      # track: (point, image id, its 2-D index)
+    for i, c in enumerate(cams):
+        seen, xy = frustum_points(c, pts)
+        images[i + 1] = colmap.ColmapImage(
+            i + 1, colmap.rotmat_to_qvec(c.R.T), c.T, 1,
+            f"{c.image_name}.png", xy, seen + 1)
+        track.append(np.stack([seen, np.full_like(seen, i + 1),
+                               np.arange(len(seen))], 1))
+    track = np.concatenate(track)
+    track = track[np.argsort(track[:, 0], kind="stable")].astype(np.int32)
+    ends = np.searchsorted(track[:, 0], np.arange(N_POINTS + 1))
+    points = {i + 1: colmap.ColmapPoint3D(
+        i + 1, pts[i], rgb[i], 0.1, track[ends[i]:ends[i + 1], 1],
+        track[ends[i]:ends[i + 1], 2]) for i in range(N_POINTS)}
     c0 = cams[0]
     intr = {1: colmap.ColmapCamera(1, "PINHOLE", WIDTH, HEIGHT, np.array(
         [c0.fx, c0.fy, WIDTH / 2, HEIGHT / 2]))}
@@ -353,8 +497,8 @@ def write_scene(root, dev, seed=0):
 
 def kernel_counts():
     """Every kernel wrapper's launch count dict."""
-    from gssr_tpu_torch.ops import blend, blend2d
-    return (blend.LAUNCHES, blend2d.LAUNCHES)
+    from gssr_tpu_torch.ops import blend, blend2d, blend_pgsr
+    return (blend.LAUNCHES, blend2d.LAUNCHES, blend_pgsr.LAUNCHES)
 
 
 def reset_counts():
@@ -365,6 +509,31 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {k: n for counts in kernel_counts() for k, n in counts.items()}
+
+
+def step_line(step_ms) -> str:
+    """Median step, the highest percentile with ten samples above it (the
+    largest step where that would lie below the median), and Mpix/s of a
+    list of step times."""
+    step_ms = sorted(step_ms)
+    med = statistics.median(step_ms)
+    tail_n = len(step_ms) - 10
+    tail = (f"p{100 * tail_n / len(step_ms):.0f} {step_ms[tail_n - 1]:.2f}"
+            if tail_n > len(step_ms) // 2 else f"max {step_ms[-1]:.2f}")
+    return (f"median step {med:.2f} ms, {tail} ms (n={len(step_ms)}), "
+            f"{WIDTH * HEIGHT / med / 1e3:.2f} Mpix/s")
+
+
+def assert_ring_neighbours(cameras):
+    """PGSR's view selection gives each ring camera its two ring
+    neighbours first, and never the camera itself. near_ids index the
+    (shuffled) camera list; the ring position is in the image name."""
+    n = len(cameras)
+    ring = [int(c.image_name[len("cam"):]) for c in cameras]
+    for i, c in enumerate(cameras):
+        assert i not in c.near_ids, (c.image_name, c.near_ids)
+        assert {ring[k] for k in c.near_ids[:2]} == \
+            {(ring[i] - 1) % n, (ring[i] + 1) % n}, (c.image_name, c.near_ids)
 
 
 def phase_train(dev, root, card_line, method):
@@ -381,7 +550,8 @@ def phase_train(dev, root, card_line, method):
         "--trainer.log-interval", "1",
         "--scene.gaussians.oneup-sh-interval", "5",
         "--scene.gaussians.densify-from-iter", "10",
-        "--scene.gaussians.densification-interval", "10"])
+        "--scene.gaussians.densification-interval", "10",
+        *METHOD_ARGS.get(method, [])])
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -392,8 +562,11 @@ def phase_train(dev, root, card_line, method):
 
     scene, state = trainer.scene, trainer.scene.state
     hist = trainer.history
-    losses = [h[1] for h in hist]
-    assert len(hist) == STEPS and all(map(math.isfinite, losses)), losses
+    assert len(hist) == STEPS, len(hist)
+    # the image terms, which every step has: pgsr's total loss gains its
+    # multi-view terms after MULTI_VIEW_FROM
+    losses = [h[4]["L1_loss"] + h[4]["ssim_loss"] for h in hist]
+    assert all(math.isfinite(h[1]) for h in hist), [h[1] for h in hist]
     # the sampler draws every camera once per epoch of N_CAMS steps:
     # compare whole epochs, first against last
     first = statistics.mean(losses[:N_CAMS])
@@ -406,50 +579,68 @@ def phase_train(dev, root, card_line, method):
     ply = config.get_gaussian_dir() / f"iteration_{STEPS}" / \
         "point_cloud.ply"
     assert ply.exists() and ply.stat().st_size > 0, ply
-    for k in PATH_KERNELS[method]:
-        assert launches[k] >= STEPS, \
-            f"{k} launched {launches[k]} times in {STEPS} steps"
-    step_ms = sorted(1e3 * (b[3] - a[3]) for a, b in zip(hist[1:], hist[2:]))
-    med = statistics.median(step_ms)
-    # the highest percentile with ten samples above it
-    tail_n = len(step_ms) - 10
-    tail = step_ms[tail_n - 1] if tail_n > 0 else float("nan")
-    psnr = trainer.evals[STEPS]["eval_psnr"]
+    renders = STEPS
     tag = f"[train {method}]"
+    # step time: from one log point to the next, so from step 3 on
+    step_ms = {b[0]: 1e3 * (b[3] - a[3]) for a, b in zip(hist[1:], hist[2:])}
+    if method == "pgsr":
+        assert_ring_neighbours(scene.dataloader.train_cameras)
+        multi = [h[4] for h in hist if h[0] > MULTI_VIEW_FROM]
+        assert all("geo_loss" not in h[4] for h in hist
+                   if h[0] <= MULTI_VIEW_FROM)
+        assert all(t["geo_loss"] > 0 and t["ncc_loss"] > 0 for t in multi), \
+            multi
+        renders += len(multi)       # the neighbour's render
+        print(f"{tag} single-view steps 3-{MULTI_VIEW_FROM}: " + step_line(
+            [v for s, v in step_ms.items() if s <= MULTI_VIEW_FROM]))
+        print(f"{tag} multi-view steps {MULTI_VIEW_FROM + 1}-{STEPS}: "
+              + step_line([v for s, v in step_ms.items()
+                           if s > MULTI_VIEW_FROM]))
+        print(f"{tag} step {STEPS} terms "
+              f"{ {k: round(v, 6) for k, v in hist[-1][4].items()} }")
+    for k in PATH_KERNELS[method]:
+        assert launches[k] >= renders, \
+            f"{k} launched {launches[k]} times in {renders} train renders"
+    psnr = trainer.evals[STEPS]["eval_psnr"]
     print(f"{tag} {STEPS} steps in {wall:.1f} s (eval and save included); "
-          f"loss epoch 1 {first:.5f} -> epoch {last_epoch // N_CAMS} "
-          f"{last:.5f}")
+          f"L1 + D-SSIM loss epoch 1 {first:.5f} -> epoch "
+          f"{last_epoch // N_CAMS} {last:.5f}")
     print(f"{tag} n_active {n0} -> {int(state.n_active)} of capacity "
           f"{state.active.shape[0]}; launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"{tag} median step {med:.2f} ms, "
-          f"p{100 * tail_n / len(step_ms):.0f} {tail:.2f} ms "
-          f"(n={len(step_ms)}), {WIDTH * HEIGHT / med / 1e3:.2f} Mpix/s, "
-          f"num_rendered {hist[-1][2]}, eval PSNR {psnr:.3f} dB  | "
-          f"{card_line}", flush=True)
+    print(f"{tag} {step_line(step_ms.values())}, num_rendered {hist[-1][2]}, "
+          f"eval PSNR {psnr:.3f} dB  | {card_line}", flush=True)
     return trainer, launches
 
 
 def phase_mesh(trainer, card_line):
-    """`python -m gssr_tpu_torch.extract_mesh` on the 2dgs run, in process:
-    bounded at a grid of about 256^3, then unbounded at 128^3."""
+    """`python -m gssr_tpu_torch.extract_mesh` on a run, in process, with
+    each of its MESH_METHODS options: bounded at a grid of about 256^3,
+    unbounded at 128^3. Each renders every camera once through the path's
+    forward kernel, and a pgsr render also counts its observe."""
     from gssr_tpu_torch import extract_mesh
     from gssr_tpu_torch.utils.mesh_extract import read_mesh_ply
+    method = trainer.config.method_name
     cfg = str(trainer.config.get_base_dir() / "config.yml")
     runs = {}
     for name, extra in MESH_RUNS:
+        if name not in MESH_METHODS[method]:
+            continue
         reset_counts()
         t0 = time.perf_counter()
         res = extract_mesh.main(["--load-config", cfg, "--skip-images",
                                  *extra])
         wall = time.perf_counter() - t0
         launches = read_counts()
-        assert launches["blend2d_fwd"] >= N_CAMS, launches
+        assert launches[PATH_KERNELS[method][0]] >= N_CAMS, launches
+        if method == "pgsr":
+            assert launches["blend_pgsr_obs"] == N_CAMS, launches
         verts, faces = read_mesh_ply(str(res["mesh_path"]))
         assert len(verts) > 0 and len(faces) > 0, (name, len(verts))
         assert np.isfinite(verts).all()
         sec = res["seconds"]
-        print(f"[mesh {name}] {len(verts)} verts, {len(faces)} faces in "
+        print(f"[mesh {method} {name}] {len(verts)} verts, {len(faces)} "
+              f"faces in "
               f"{wall:.1f} s: render {sec['render']:.2f} s, fusion "
               f"{sec['fusion']:.2f} s, marching tetrahedra "
               f"{sec['mtet']:.2f} s; launches {launches}  | {card_line}",
@@ -527,16 +718,21 @@ def assert_live_rows(d_plain, live):
     assert bool((row_max > 100 * BWD_TOL["atol"]).all()), row_max.tolist()
 
 
-def assert_rows_close(d_k, d_p, live):
-    """Each live gradient row against its plain version in units of the
-    row's largest plain value (the absolute tolerance taken relative to
-    it, the relative one as it is), so that a zeroed or swapped row fails
-    however small its gradients are. The surfel rows of CA are: dL/dCA
-    carries 1/pz, and pz grows with the square of the image size."""
-    scale = d_p[:live].abs().amax(dim=1, keepdim=True)
+def assert_rows_close(d_k, d_p, rows):
+    """Each of these gradient rows against its plain version in units of
+    the row's largest plain value (the absolute tolerance taken relative
+    to it, the relative one as it is), so that a zeroed or swapped row
+    fails however small its gradients are. The surfel rows of CA are:
+    dL/dCA carries 1/pz, and pz grows with the square of the image size."""
+    rows = list(rows)
+    scale = d_p[rows].abs().amax(dim=1, keepdim=True)
     assert bool((scale > 0).all()), scale.flatten().tolist()
-    torch.testing.assert_close(d_k[:live] / scale, d_p[:live] / scale,
+    torch.testing.assert_close(d_k[rows] / scale, d_p[rows] / scale,
                                **BWD_TOL)
+
+
+def assert_zero_rows(d_k, live):
+    """The rows past the live ones are never written."""
     assert torch.equal(d_k[live:], torch.zeros_like(d_k[live:]))
 
 
@@ -574,7 +770,7 @@ def phase_report(trainer, launches, dev):
     torch.testing.assert_close(d_k, d_p, **BWD_TOL)
     assert torch.equal(d_k, B.blend_bwd(attrs, ranges, out_k, cot, tx, ty))
 
-    pairs = B.blend_pair_count(attrs, ranges, tx, ty)
+    pairs, _ = B.blend_pair_count(attrs, ranges, tx, ty)
     n_inst = attrs.shape[1]
     hw = out_k.shape[0] * out_k.shape[1]
     live_bytes = B.LIVE_ATTRS * n_inst * 4 + ranges.numel() * 4
@@ -650,7 +846,8 @@ def phase_report2d(trainer, launches, dev):
     d_k = B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty)
     d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
     torch.testing.assert_close(d_k, d_p, **BWD_TOL)
-    assert_rows_close(d_k, d_p, B.LIVE_ATTRS2)
+    assert_rows_close(d_k, d_p, range(B.LIVE_ATTRS2))
+    assert_zero_rows(d_k, B.LIVE_ATTRS2)
     assert torch.equal(d_k, B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty))
     # the rows of the low-pass centre and of CA stay far below the others
     # (dL/dCA carries 1/pz), so no one cotangent puts every row above
@@ -691,6 +888,128 @@ def phase_report2d(trainer, launches, dev):
     return rows
 
 
+def phase_report_pgsr(trainer, launches, dev):
+    """The three planar kernels against their plain versions at the pgsr
+    path's own inputs (the trained model, camera 0), under the cotangent
+    of the pgsr multi-view loss at the end of training through the
+    reference render plus a random one on final_T, each channel group
+    scaled to a largest entry of 1. The backward compares as a whole at
+    the stated tolerance and row by row in units of each row's largest
+    plain value; rows 14-15 (the abs screen gradients) as gradients, row
+    13 (the observe count) exactly and equal to the observe kernel's
+    counts."""
+    from types import SimpleNamespace
+
+    from gssr_tpu_torch.ops import blend_pgsr as B
+    from gssr_tpu_torch.ops.blend import blend_pair_count
+    from gssr_tpu_torch.ops.rasterize_pgsr import (
+        planar_geometry,
+        planar_outputs,
+    )
+    from gssr_tpu_torch.ops.sh import sh_to_color
+    scene, state = trainer.scene, trainer.scene.state
+    g, p = scene.gaussians, state.params
+    cam_h = scene.dataloader.train_cameras[0]
+    cam = cam_h.arrays(dev)
+    with torch.no_grad():
+        scales, rots = g.get_scaling(p), g.get_rotation(p)
+        color = sh_to_color(3, g.get_features(p), p["xyz"], cam.campos)
+        normal, distance = planar_geometry(p["xyz"], scales, rots, cam)
+        attrs, b, tx, ty = pgsr_inputs(
+            p["xyz"], scales, rots, g.get_opacity(p)[:, 0], color, normal,
+            distance, cam, scene.width, scene.height, active=state.active)
+    ranges = b.tile_ranges
+    out_k = B.blend_pgsr_fwd(attrs, ranges, tx, ty)
+    out_p = B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty)
+    torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    obs_k = B.blend_pgsr_observe(attrs, ranges, tx, ty)
+    obs_p = B.blend_pgsr_obs_plain(attrs, ranges, tx, ty)
+    assert torch.equal(obs_k, obs_p)
+
+    step = STEPS
+    f = out_k.clone().requires_grad_(True)
+    out = SimpleNamespace(**planar_outputs(
+        B.PlanarMaps(f), cam, scene.width, scene.height, scene.background))
+    near, near_gray = scene.near_for(cam_h)
+    near_cam = near.arrays(dev)
+    with torch.no_grad():
+        near_out = scene.render_params(p, near_cam, g.active_sh_degree(step),
+                                       state.active, scene.background,
+                                       forward_observe=False)
+    gt = scene.gt_device(cam_h)
+    terms = scene.loss_terms(out, gt, step, cam)
+    terms.update(scene.multi_view_terms(out, near_out, cam, near_cam, gt,
+                                        near_gray, step))
+    terms_line = {k: round(float(v.detach()), 6) for k, v in terms.items()}
+    assert all(v > 0 for v in terms_line.values()), terms_line
+    # the loss reaches final_T only through the background, black here: a
+    # random probe on it drives the backward's background term
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    probe = torch.randn(out.final_T.shape, generator=gen).to(dev)
+    (cot,) = torch.autograd.grad(
+        sum(terms.values()) + (out.final_T * probe).sum(), f)
+    for lo, hi in ((B.PO_RGB, B.PO_RGB + 3), (B.PO_NRM, B.PO_NRM + 3),
+                   (B.PO_DIST, B.PO_DIST + 1), (B.PO_T, B.PO_T + 1)):
+        peak = cot[..., lo:hi].abs().max()
+        assert float(peak) > 0, (lo, hi)
+        cot[..., lo:hi] /= peak
+    cot = cot.contiguous()
+    d_k = B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx, ty)
+    d_p = B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
+    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
+    assert_rows_close(d_k, d_p, [r for r in range(B.NUM_ATTRS_P)
+                                 if r != B.P_OBS])
+    assert torch.equal(d_k[B.P_OBS], d_p[B.P_OBS])
+    assert torch.equal(d_k[B.P_OBS], obs_k)
+    assert torch.equal(d_k, B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx,
+                                             ty))
+    # the normal and distance channels' cotangents are large at few pixels
+    # (the plane depth divides by n . ray), so those rows can stay below
+    # 100 x atol; the per-row comparison above holds each in units of its
+    # own largest value
+    row_max = d_p.abs().amax(dim=1)
+    grad_max = row_max[:B.LIVE_ATTRS_P]
+    print(f"[report pgsr] largest plain value per row: "
+          f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
+          f"{int((grad_max > 100 * BWD_TOL['atol']).sum())} of "
+          f"{B.LIVE_ATTRS_P} live rows above 100 x atol")
+
+    pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
+    n_inst = attrs.shape[1]
+    hw = out_k.shape[0] * out_k.shape[1]
+    range_bytes = ranges.numel() * 4
+    map_bytes = hw * B.OUTP_ROWS * 4
+    live_bytes = B.LIVE_ATTRS_P * n_inst * 4 + range_bytes
+    src = "gssr_tpu_torch/csrc/blend_pgsr.cu"
+    pallas = "gssr_tpu/ops/blend_pgsr_pallas.py"
+    rows = [
+        report_row("blend_pgsr_fwd", src, f"{pallas}:83",
+                   launches["blend_pgsr_fwd"], max_err(out_k, out_p),
+                   lambda: B.blend_pgsr_fwd(attrs, ranges, tx, ty),
+                   lambda: B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty),
+                   FWDP_OPS_PER_PAIR * pairs + FWDP_OPS_PER_CONTRIB * contrib,
+                   live_bytes + map_bytes),
+        report_row("blend_pgsr_obs", src, f"{pallas}:182",
+                   launches["blend_pgsr_obs"], max_err(obs_k, obs_p),
+                   lambda: B.blend_pgsr_observe(attrs, ranges, tx, ty),
+                   lambda: B.blend_pgsr_obs_plain(attrs, ranges, tx, ty),
+                   OBSP_OPS_PER_PAIR * pairs,
+                   B.P_RGB * n_inst * 4 + range_bytes + n_inst * 4),
+        report_row("blend_pgsr_bwd", src, f"{pallas}:216",
+                   launches["blend_pgsr_bwd"], max_err(d_k, d_p),
+                   lambda: B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx,
+                                            ty),
+                   lambda: B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot,
+                                                  tx, ty),
+                   BWDP_OPS_PER_PAIR * pairs + BWDP_OPS_PER_CONTRIB * contrib,
+                   live_bytes + 2 * map_bytes + attrs.numel() * 4)]
+    print(f"[report pgsr] planar blend inputs: {tx * 16}x{ty * 16} padded, "
+          f"{n_inst} instance slots, {pairs} (pixel, instance) pairs before "
+          f"saturation, {contrib} contributing, {int(obs_k.sum())} observed; "
+          f"loss terms {terms_line}", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None)
@@ -709,19 +1028,24 @@ def main(argv=None) -> int:
     phase_build()
     phase_kernels(dev)
     phase_kernels2d(dev)
+    phase_kernels_pgsr(dev)
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_scene(os.path.join(root, "scene"), dev)
         print(f"[train] scene written in {time.perf_counter() - t1:.1f} s")
         trainer3, launches3 = phase_train(dev, root, card_line, "3dgs")
         trainer2, launches2 = phase_train(dev, root, card_line, "2dgs")
+        trainerp, launchesp = phase_train(dev, root, card_line, "pgsr")
         phase_mesh(trainer2, card_line)
+        phase_mesh(trainerp, card_line)
         if args.profile:
             stem, ext = os.path.splitext(args.profile)
             phase_profile(trainer3, args.profile, card_line)
             phase_profile(trainer2, f"{stem}_2dgs{ext}", card_line)
+            phase_profile(trainerp, f"{stem}_pgsr{ext}", card_line)
         rows = phase_report(trainer3, launches3, dev)
         rows += phase_report2d(trainer2, launches2, dev)
+        rows += phase_report_pgsr(trainerp, launchesp, dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

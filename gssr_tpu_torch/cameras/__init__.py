@@ -54,6 +54,8 @@ class Camera:
     trans: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(3, dtype=np.float64))
     scale: float = 1.0
+    # PGSR's multi-view neighbours: indices into the train camera list
+    near_ids: tuple = ()
 
     def __post_init__(self):
         self.w2c = world_to_view(self.R, self.T, self.trans, self.scale)

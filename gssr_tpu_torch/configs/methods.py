@@ -1,7 +1,7 @@
 """Method registry (port of gssr_tpu/configs/methods.py).
 
-The `3dgs` and `2dgs` presets are ported; the reference's other seven
-methods are listed so that asking for one fails with a clear message
+The `3dgs`, `2dgs` and `pgsr` presets are ported; the reference's other
+six methods are listed so that asking for one fails with a clear message
 until their slice lands.
 """
 from __future__ import annotations
@@ -42,14 +42,26 @@ def _twodgs():
             depth_ratio=0.0, lambda_normal=0.05, lambda_dist=0.0))
 
 
+def _pgsr():
+    from gssr_tpu_torch.models.pgsr import PGSRGaussianConfig
+    from gssr_tpu_torch.scene.pgsr import PGSRSceneConfig
+    return Config(
+        method_name="pgsr",
+        scene=PGSRSceneConfig(
+            dataloader=DataLoaderConfig(),
+            gaussians=PGSRGaussianConfig()))
+
+
 METHOD_FACTORIES: Dict[str, Callable[[], Config]] = {"3dgs": _vanilla,
-                                                     "2dgs": _twodgs}
+                                                     "2dgs": _twodgs,
+                                                     "pgsr": _pgsr}
 
 NOT_YET_PORTED = ("scaffold-gs", "octree-gs", "scaffold-2dgs",
-                  "octree-2dgs", "pgsr", "scaffold-pgsr", "octree-pgsr")
+                  "octree-2dgs", "scaffold-pgsr", "octree-pgsr")
 
 DESCRIPTIONS = {"3dgs": "Vanilla 3D Gaussian Splatting",
-                "2dgs": "2DGS surfel splatting"}
+                "2dgs": "2DGS surfel splatting",
+                "pgsr": "PGSR planar splatting with multi-view regularization"}
 
 
 def get_method_config(name: str) -> Config:
@@ -66,10 +78,12 @@ def get_method_config(name: str) -> Config:
 
 def build_scene(config: Config, device, **kwargs):
     """Instantiate the scene matching the scene config's type."""
+    from gssr_tpu_torch.scene.pgsr import PGSRScene, PGSRSceneConfig
     from gssr_tpu_torch.scene.twodgs import TwoDGSScene, TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaScene, VanillaSceneConfig
     scenes = {VanillaSceneConfig: VanillaScene,
-              TwoDGSSceneConfig: TwoDGSScene}
+              TwoDGSSceneConfig: TwoDGSScene,
+              PGSRSceneConfig: PGSRScene}
     cls = scenes.get(type(config.scene))
     if cls is None:
         raise NotImplementedError(
@@ -80,11 +94,14 @@ def build_scene(config: Config, device, **kwargs):
 
 def config_classes():
     """Name -> class map for YAML round trips."""
+    from gssr_tpu_torch.models.pgsr import PGSRGaussianConfig
     from gssr_tpu_torch.models.twod import TwoDGaussianConfig
     from gssr_tpu_torch.models.vanilla import VanillaGaussianConfig
+    from gssr_tpu_torch.scene.pgsr import PGSRSceneConfig
     from gssr_tpu_torch.scene.twodgs import TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaSceneConfig
     classes = [Config, MachineConfig, TrainerConfig, DataLoaderConfig,
                VanillaGaussianConfig, VanillaSceneConfig,
-               TwoDGaussianConfig, TwoDGSSceneConfig]
+               TwoDGaussianConfig, TwoDGSSceneConfig, PGSRGaussianConfig,
+               PGSRSceneConfig]
     return {c.__name__: c for c in classes}

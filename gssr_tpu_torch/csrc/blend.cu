@@ -36,33 +36,9 @@ namespace {
 
 using namespace gssr;
 
+// rows 0-5 (mean2d, conic, opacity; common.cuh), then the colour
 constexpr int LIVE = 9;
-enum { MX, MY, CXX, CXY, CYY, OP, CR, CG, CB };
-
-struct Alpha {
-  float a, dx, dy, g, raw;
-};
-
-// alpha of instance i at pixel (px, py), zero wherever the blend skips
-// (power > 0 or alpha < 1/255); filler columns are all zero -> alpha 0.
-// power is rounded after every operation (the _rn intrinsics are never
-// fused into FMAs), as blend_fwd_plain computes it, so the kernels and
-// their plain versions take the same alpha and T_EPS decisions.
-__device__ __forceinline__ Alpha chunk_alpha(const float (*s)[CHUNK], int i,
-                                             float px, float py) {
-  Alpha o;
-  o.dx = s[MX][i] - px;
-  o.dy = s[MY][i] - py;
-  const float q = __fadd_rn(__fmul_rn(__fmul_rn(s[CXX][i], o.dx), o.dx),
-                            __fmul_rn(__fmul_rn(s[CYY][i], o.dy), o.dy));
-  const float power = __fsub_rn(__fmul_rn(-0.5f, q),
-                                __fmul_rn(__fmul_rn(s[CXY][i], o.dx), o.dy));
-  o.g = expf(power);
-  o.raw = s[OP][i] * o.g;
-  const float alpha = fminf(ALPHA_MAX, o.raw);
-  o.a = (power <= 0.f && alpha >= ALPHA_MIN) ? alpha : 0.f;
-  return o;
-}
+enum { CR = GEOM_ROWS, CG, CB };
 
 __global__ void __launch_bounds__(PIX)
 blend_fwd_kernel(const float* __restrict__ attrs, long long n_inst,

@@ -31,7 +31,8 @@ class Trainer:
         self.scene = scene
         self.start_step = 0
         self.callbacks = []
-        # (step, loss, num_rendered, host seconds) at every log point
+        # (step, loss, num_rendered, host seconds, {loss term: value}) at
+        # every log point
         self.history = []
         self.evals = {}               # step -> evaluate() metrics
 
@@ -65,8 +66,10 @@ class Trainer:
 
             if step % log_interval == 0:
                 loss = float(metrics["loss"])
+                terms = {k: float(v) for k, v in metrics.items()
+                         if k.endswith("_loss")}
                 self.history.append((step, loss, int(metrics["num_rendered"]),
-                                     time.perf_counter()))
+                                     time.perf_counter(), terms))
                 ema_loss = loss if ema_loss is None else \
                     0.6 * ema_loss + 0.4 * loss
             if step % (log_interval * 50) == 0:

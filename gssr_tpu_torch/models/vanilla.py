@@ -230,7 +230,24 @@ class VanillaGaussians:
             big_ws = max_scale > 0.1 * extent
             big_vs = state.stats["max_radii2d"] > 20.0
             prune = prune | (active & (big_ws | big_vs))
-        new_active = active & ~prune & ~split_mask
+        if noise is None:
+            noise = torch.randn((2, cap, self.scale_dim), generator=generator,
+                                device=dev)
+        return self.place_densified(state, clone_mask, split_mask, prune,
+                                    noise)
+
+    def place_densified(self, state: GaussianState, clone_mask, split_mask,
+                        prune, child_noise, clone_noise=None
+                        ) -> GaussianState:
+        """Apply a densify decision: drop the pruned and split gaussians,
+        write clones and the two children of each split into free slots by
+        rank (child c displaced by child_noise[c], a clone by clone_noise
+        or not at all), zero the new slots' Adam moments and every
+        statistic."""
+        p = state.params
+        cap = p["xyz"].shape[0]
+        dev = p["xyz"].device
+        new_active = state.active & ~prune & ~split_mask
 
         # free-slot allocation: rank -> slot table of the free slots
         slots = torch.arange(cap, dtype=torch.int32, device=dev)
@@ -254,9 +271,7 @@ class VanillaGaussians:
         dest_child2 = dest(split_mask, split_rank, n_clone + n_split)
 
         R = quat_to_rotmat(p["rotation"])
-        if noise is None:
-            noise = torch.randn((2, cap, self.scale_dim), generator=generator,
-                                device=dev)
+        scaling = self.get_scaling(p)
         child_scaling = torch.log(scaling / (0.8 * 2.0))
 
         def place(acc, dst, overrides):
@@ -268,9 +283,11 @@ class VanillaGaussians:
                 out[k] = d
             return out
 
-        new_params = place(p, dest_clone, {})
+        new_params = place(p, dest_clone, {} if clone_noise is None else {
+            "xyz": p["xyz"] + self.split_displacement(R, scaling,
+                                                      clone_noise)})
         for c, dst in ((0, dest_child1), (1, dest_child2)):
-            samples = self.split_displacement(R, scaling, noise[c])
+            samples = self.split_displacement(R, scaling, child_noise[c])
             new_params = place(new_params, dst,
                                {"xyz": p["xyz"] + samples,
                                 "scaling": child_scaling})

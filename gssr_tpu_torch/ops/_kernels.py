@@ -37,6 +37,11 @@ SOURCES = {
         "gssr_blend2d_fwd": (_P, _I64, _P, _I32, _I32, _P),
         "gssr_blend2d_bwd": (_P, _I64, _P, _I32, _I32, _P, _P, _P),
     },
+    "blend_pgsr.cu": {
+        "gssr_blend_pgsr_fwd": (_P, _I64, _P, _I32, _I32, _P),
+        "gssr_blend_pgsr_obs": (_P, _I64, _P, _I32, _I32, _P),
+        "gssr_blend_pgsr_bwd": (_P, _I64, _P, _I32, _I32, _P, _P, _P),
+    },
 }
 
 _fns = None

@@ -182,19 +182,24 @@ def blend_bwd_plain(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
     return dattrs
 
 
-def blend_pair_count(attrs, ranges, tiles_x: int, tiles_y: int) -> int:
-    """The (pixel, instance) pairs a blend must evaluate on these inputs:
-    per pixel, its tile's instances up to the one at which the pixel's
-    transmittance has fallen below T_EPS. Both kernels do their arithmetic
-    per such pair, so this is the work their bounds count."""
+def blend_pair_count(attrs, ranges, tiles_x: int, tiles_y: int):
+    """The work of a blend on these inputs: (pairs, contributing). `pairs`
+    are the (pixel, instance) pairs it must evaluate, per pixel its tile's
+    instances up to the one at which the pixel's transmittance has fallen
+    below T_EPS; `contributing` the pairs among them with a blend weight.
+    The kernels evaluate the gaussian per pair and do the rest of their
+    arithmetic per contributing pair, so these are the counts their bounds
+    rest on. Only rows 0-5 are read, which the planar (PGSR) layout
+    shares."""
     px, py = _pixel_coords(tiles_x, tiles_y, attrs.device)
     D = torch.ones_like(px)
-    pairs = 0
-    for A, _, live in _chunks(attrs, ranges):
+    pairs = contributing = 0
+    for A, _, live in _chunks(attrs[:ATTR_R], ranges):
         a, _ = _chunk_alpha(A, px, py)
-        _, d_before, _, _, D = _walk(a, D)
+        _, d_before, contrib, _, D = _walk(a, D)
         pairs += int(((d_before >= T_EPS) & live[:, None, None]).sum())
-    return pairs
+        contributing += int(contrib.sum())
+    return pairs, contributing
 
 
 # ---------------------------------------------------------------------------

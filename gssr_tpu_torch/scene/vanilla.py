@@ -143,20 +143,24 @@ class VanillaScene:
     def densify(self, state: GaussianState, step: int,
                 noise=None) -> GaussianState:
         """Densify/prune and opacity reset on the reference's schedule.
-        `noise` [2, C, 3] replaces the split samples (tests inject the
-        reference's draw)."""
+        `noise` replaces the model's position samples, [2, C, 3] for the
+        split children here (tests inject the reference's draw)."""
         cfg = self.config.gaussians
         if step >= cfg.densify_until_iter:
             return state
         with torch.no_grad():
             if step > cfg.densify_from_iter and \
                     step % cfg.densification_interval == 0:
-                state = self.gaussians.densify_and_prune(
-                    state, step > cfg.opacity_reset_interval,
-                    generator=self.generator, noise=noise)
+                state = self.densify_and_prune(
+                    state, step > cfg.opacity_reset_interval, noise)
             if step % cfg.opacity_reset_interval == 0:
                 state = self.gaussians.reset_opacity(state)
         return state
+
+    def densify_and_prune(self, state: GaussianState, use_size_prune: bool,
+                          noise=None) -> GaussianState:
+        return self.gaussians.densify_and_prune(
+            state, use_size_prune, generator=self.generator, noise=noise)
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -24,9 +24,10 @@ assert not leaked, leaked
 for must in ("ops.blend", "ops.blend2d", "ops.projection2d", "ops.rasterize2d",
              "ops.sampling", "models.twod", "scene.twodgs", "utils.tsdf",
              "utils.mtet", "utils.mesh_eval", "utils.mesh_extract",
-             "extract_mesh"):
+             "extract_mesh", "ops.blend_pgsr", "ops.rasterize_pgsr",
+             "models.pgsr", "scene.pgsr", "dataio.view_selection"):
     assert "gssr_tpu_torch." + must in names, (must, names)
-assert len(names) >= 41, names
+assert len(names) >= 46, names
 print(len(names))
 """
 

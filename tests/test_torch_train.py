@@ -157,4 +157,4 @@ def test_the_entry_point_refuses_to_run_without_the_card(monkeypatch):
         MachineConfig().torch_device()
     assert MachineConfig(device="cpu").torch_device().type == "cpu"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_method_config("pgsr")
+        get_method_config("scaffold-pgsr")
