@@ -7,7 +7,9 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
 
 1. build    one nvcc per source of gssr_tpu_torch/csrc/, all started
             together, for sm_90a; prints the build seconds, the registers
-            and spills, and the card.
+            and spills, and the card; for the surfel and planar backwards
+            also their dynamic shared memory and resident blocks per SM,
+            which must be at least 2 and 3.
 2. kernels  each blend kernel against its plain PyTorch version on the
             card at 256x256: the vanilla pair with ~20k gaussians, the
             surfel pair with ~20k surfels, the planar (PGSR) forward,
@@ -17,7 +19,9 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             observe count its T > 0.5 cut-off) and a seeded randn
             cotangent; each backward runs twice and must agree bit for bit,
             and the planar backward's observe row must equal the observe
-            kernel's counts.
+            kernel's counts. The surfel and planar backwards' first designs
+            (the *_v1 kernels, their yardstick) pass the same checks and
+            agree with the current ones; both are timed in turns.
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
@@ -28,7 +32,8 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             Asserts finite losses, image losses that fall, a changed
             n_active, a written PLY, and that every train render launched
             the path's forward and backward kernels (two renders on a
-            multi-view step); for pgsr also ring neighbours and no camera
+            multi-view step) and no render launched a *_v1 backward; for
+            pgsr also ring neighbours and no camera
             its own, and geo and NCC losses above 0 on every multi-view
             step. Prints the median step (for pgsr also single- and
             multi-view apart), its tail, Mpix/s, peak memory.
@@ -43,7 +48,9 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             pair under that of the 2dgs loss with both regularisers live
             plus a random one on median_normal, the planar kernels under
             that of the pgsr multi-view loss, each channel group scaled to
-            unit size; with times and bounds. Prints the {"kernels": [...]}
+            unit size; with times and bounds, the surfel and planar
+            backwards timed in turns with their v1 kernels (plain, v1, new,
+            new, v1; "v1_ms" in their rows). Prints the {"kernels": [...]}
             line, the card, and last the {"ok": true, "device": {...}} line.
 
 --profile FILE adds three profiled train steps to each path after phase 3
@@ -61,6 +68,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -114,6 +122,13 @@ MESH_METHODS = {"2dgs": ("bounded", "unbounded"), "pgsr": ("bounded",)}
 PATH_KERNELS = {"3dgs": ("blend_fwd", "blend_bwd"),
                 "2dgs": ("blend2d_fwd", "blend2d_bwd"),
                 "pgsr": ("blend_pgsr_fwd", "blend_pgsr_bwd")}
+# the first backward designs, kept as the yardstick of the current ones:
+# no render may launch them
+V1_KERNELS = ("blend2d_bwd_v1", "blend_pgsr_bwd_v1")
+# the redesigned backwards' occupancy entry points and the resident blocks
+# per SM each must keep
+OCCUPANCY = {"gssr_blend2d_bwd_occupancy": 2,
+             "gssr_blend_pgsr_bwd_occupancy": 3}
 # each path's options beyond the common ones
 METHOD_ARGS = {"pgsr": ["--scene.multi-view-from", str(MULTI_VIEW_FROM)]}
 
@@ -126,8 +141,8 @@ def card() -> str:
     return out.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median of per-call CUDA-event times, after one warm-up call."""
+def event_ms(fn, reps: int) -> list:
+    """Per-call CUDA-event times, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -139,7 +154,20 @@ def median_ms(fn, reps: int) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return times
+
+
+def median_ms(fn, reps: int) -> float:
+    return statistics.median(event_ms(fn, reps))
+
+
+def turns_ms(v1, new, reps: int = 20):
+    """A v1 kernel and its redesign timed in turns v1, new, new, v1:
+    (v1 ms, new ms), each the median of its two turns' samples."""
+    times = {v1: [], new: []}
+    for fn in (v1, new, new, v1):
+        times[fn] += event_ms(fn, reps)
+    return statistics.median(times[v1]), statistics.median(times[new])
 
 
 def max_err(a, b) -> float:
@@ -232,7 +260,7 @@ def per_gaussian(slot_values, b):
 # 1. build
 # ---------------------------------------------------------------------------
 
-def phase_build():
+def phase_build(dev):
     from gssr_tpu_torch.ops import _kernels
     info = _kernels.build()
     _kernels.load()
@@ -241,8 +269,13 @@ def phase_build():
     for src, lib in info["libs"].items():
         print(f"[build] {src} -> {lib['path'].name} in {lib['seconds']:.2f} s")
         for line in lib["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "Compiling entry" in line):
                 print(f"[build] {line.strip()}")
+    for name, least in OCCUPANCY.items():
+        occ = _kernels.occupancy(name, dev)
+        print(f"[build] {name}: {occ}")
+        assert occ["blocks_per_sm"] >= least, (name, occ)
 
 
 # ---------------------------------------------------------------------------
@@ -328,23 +361,22 @@ def phase_kernels2d(dev):
     assert medians > 0, "no pixel has a median"
     cot = torch.randn(out_k.shape, generator=g).to(dev)
     cot[..., list(B.NO_GRAD_ROWS)] = 0.0
-    d_k = B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty)
+    bwd = partial(B.blend2d_bwd, attrs, ranges, out_k, cot, tx, ty)
+    bwd_v1 = partial(B.blend2d_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
+    d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
-    assert_rows_close(d_k, d_p, range(B.LIVE_ATTRS2))
-    assert_zero_rows(d_k, B.LIVE_ATTRS2)
-    assert torch.equal(d_k, B.blend2d_bwd(attrs, ranges, out_k, cot, tx,
-                                          ty)), \
-        "the surfel backward kernel is not deterministic"
+    same = assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2),
+                                B.LIVE_ATTRS2, bwd, bwd_v1)
     fwd_ms = median_ms(lambda: B.blend2d_fwd(attrs, ranges, tx, ty), 20)
-    bwd_ms = median_ms(lambda: B.blend2d_bwd(attrs, ranges, out_k, cot, tx,
-                                             ty), 20)
+    v1_ms, bwd_ms = turns_ms(bwd_v1, bwd)
     print(f"[kernels2d] 256x256, {n} surfels, {attrs.shape[1]} instance "
           f"slots, {saturated} saturated pixels, {medians} with a median")
     print(f"[kernels2d] blend2d_fwd max|err| {max_err(out_k, out_p):.3e}  "
           f"{fwd_ms:.4f} ms")
     print(f"[kernels2d] blend2d_bwd max|err| {max_err(d_k, d_p):.3e}  "
-          f"{bwd_ms:.4f} ms  deterministic: yes")
+          f"{bwd_ms:.4f} ms  v1 max|err| {max_err(d_v1, d_p):.3e}  "
+          f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: "
+          f"{'yes' if same else 'no'}")
 
 
 def phase_kernels_pgsr(dev):
@@ -380,23 +412,22 @@ def phase_kernels_pgsr(dev):
     assert 0 < observed < contrib, \
         f"the T > 0.5 cut-off did not fire ({observed} of {contrib})"
     cot = torch.randn(out_k.shape, generator=g).to(dev)
-    d_k = B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx, ty)
+    bwd = partial(B.blend_pgsr_bwd, attrs, ranges, out_k, cot, tx, ty)
+    bwd_v1 = partial(B.blend_pgsr_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
+    d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
     # every row but the observe count is a gradient
-    assert_rows_close(d_k, d_p, [r for r in range(B.NUM_ATTRS_P)
-                                 if r != B.P_OBS])
-    assert torch.equal(d_k[B.P_OBS], d_p[B.P_OBS])
-    assert torch.equal(d_k, B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx,
-                                             ty)), \
-        "the planar backward kernel is not deterministic"
-    assert torch.equal(d_k[B.P_OBS], obs_k)
+    grad_rows = [r for r in range(B.NUM_ATTRS_P) if r != B.P_OBS]
+    same = assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P,
+                                bwd, bwd_v1)
+    for d in (d_k, d_v1):
+        assert torch.equal(d[B.P_OBS], d_p[B.P_OBS])
+        assert torch.equal(d[B.P_OBS], obs_k)
     assert torch.equal(per_gaussian(d_k[B.P_OBS], b), per_gaussian(obs_k, b))
     fwd_ms = median_ms(lambda: B.blend_pgsr_fwd(attrs, ranges, tx, ty), 20)
     obs_ms = median_ms(lambda: B.blend_pgsr_observe(attrs, ranges, tx, ty),
                        20)
-    bwd_ms = median_ms(lambda: B.blend_pgsr_bwd(attrs, ranges, out_k, cot,
-                                                tx, ty), 20)
+    v1_ms, bwd_ms = turns_ms(bwd_v1, bwd)
     print(f"[kernels pgsr] 256x256, {n} gaussians, {attrs.shape[1]} "
           f"instance slots, {saturated} saturated pixels; {contrib} "
           f"contributing pairs, {observed} of them observed (D > 0.5)")
@@ -404,8 +435,10 @@ def phase_kernels_pgsr(dev):
           f"{max_err(out_k, out_p):.3e}  {fwd_ms:.4f} ms")
     print(f"[kernels pgsr] blend_pgsr_obs exact  {obs_ms:.4f} ms")
     print(f"[kernels pgsr] blend_pgsr_bwd max|err| {max_err(d_k, d_p):.3e}  "
-          f"{bwd_ms:.4f} ms  deterministic: yes; observe row = observe "
-          f"kernel, per slot and per gaussian")
+          f"{bwd_ms:.4f} ms  v1 max|err| {max_err(d_v1, d_p):.3e}  "
+          f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: "
+          f"{'yes' if same else 'no'}; observe row = observe kernel, per "
+          f"slot and per gaussian")
 
 
 # ---------------------------------------------------------------------------
@@ -601,6 +634,7 @@ def phase_train(dev, root, card_line, method):
     for k in PATH_KERNELS[method]:
         assert launches[k] >= renders, \
             f"{k} launched {launches[k]} times in {renders} train renders"
+    assert all(launches[k] == 0 for k in V1_KERNELS), launches
     psnr = trainer.evals[STEPS]["eval_psnr"]
     print(f"{tag} {STEPS} steps in {wall:.1f} s (eval and save included); "
           f"L1 + D-SSIM loss epoch 1 {first:.5f} -> epoch "
@@ -703,12 +737,22 @@ def bound(ops, nbytes):
 
 
 def report_row(name, source, replaces, launches, err, fn, plain, ops,
-               nbytes):
+               nbytes, v1=None):
+    """The kernel's row of the {"kernels": [...]} line. With its v1 kernel
+    `v1`, the two are timed in turns after the plain version (plain, v1,
+    new, new, v1) and the row gains "v1_ms"."""
     bound_ms, bound_by = bound(ops, nbytes)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": median_ms(fn, 20), "plain_ms": median_ms(plain, 3),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    plain_ms = median_ms(plain, 3)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err}
+    if v1 is None:
+        row["ms"] = median_ms(fn, 20)
+    else:
+        v1_ms, row["ms"] = turns_ms(v1, fn)
+        row["v1_ms"] = v1_ms
+    row.update(plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None)
+    return row
 
 
 def assert_live_rows(d_plain, live):
@@ -734,6 +778,21 @@ def assert_rows_close(d_k, d_p, rows):
 def assert_zero_rows(d_k, live):
     """The rows past the live ones are never written."""
     assert torch.equal(d_k[live:], torch.zeros_like(d_k[live:]))
+
+
+def assert_backward_pair(d_k, d_v1, d_p, rows, live, again, again_v1):
+    """A redesigned backward kernel's result d_k and its v1 kernel's d_v1,
+    each against the plain version's d_p as a whole and row by row (the
+    gradient rows `rows`), rows from `live` on zero, and bit for bit on a
+    second run (again, again_v1); then against each other. Returns whether
+    the two kernels agree bit for bit."""
+    for d, rerun in ((d_k, again), (d_v1, again_v1)):
+        torch.testing.assert_close(d, d_p, **BWD_TOL)
+        assert_rows_close(d, d_p, rows)
+        assert_zero_rows(d, live)
+        assert torch.equal(d, rerun()), "a backward is not deterministic"
+    torch.testing.assert_close(d_k, d_v1, **BWD_TOL)
+    return torch.equal(d_k, d_v1)
 
 
 def phase_report(trainer, launches, dev):
@@ -843,12 +902,12 @@ def phase_report2d(trainer, launches, dev):
         assert float(peak) > 0, (lo, hi)
         cot[..., lo:hi] /= peak
     cot = cot.contiguous()
-    d_k = B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty)
+    bwd = partial(B.blend2d_bwd, attrs, ranges, out_k, cot, tx, ty)
+    bwd_v1 = partial(B.blend2d_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
+    d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
-    assert_rows_close(d_k, d_p, range(B.LIVE_ATTRS2))
-    assert_zero_rows(d_k, B.LIVE_ATTRS2)
-    assert torch.equal(d_k, B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty))
+    same = assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2),
+                                B.LIVE_ATTRS2, bwd, bwd_v1)
     # the rows of the low-pass centre and of CA stay far below the others
     # (dL/dCA carries 1/pz), so no one cotangent puts every row above
     # 100 x atol while the largest rows' rounding stays inside atol; the
@@ -857,7 +916,9 @@ def phase_report2d(trainer, launches, dev):
     print(f"[report 2dgs] largest plain gradient per live row: "
           f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
           f"{int((row_max > 100 * BWD_TOL['atol']).sum())} of "
-          f"{B.LIVE_ATTRS2} rows above 100 x atol")
+          f"{B.LIVE_ATTRS2} rows above 100 x atol; v1 max|err| "
+          f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: "
+          f"{'yes' if same else 'no'}")
 
     pairs, contrib = B.blend2d_pair_count(attrs, ranges, tx, ty)
     n_inst = attrs.shape[1]
@@ -874,13 +935,13 @@ def phase_report2d(trainer, launches, dev):
                    + FWD2_OPS_PER_CONTRIB * contrib,
                    live_bytes + out_bytes),
         report_row("blend2d_bwd", src, "gssr_tpu/ops/blend2d_pallas.py:269",
-                   launches["blend2d_bwd"], max_err(d_k, d_p),
-                   lambda: B.blend2d_bwd(attrs, ranges, out_k, cot, tx, ty),
+                   launches["blend2d_bwd"], max_err(d_k, d_p), bwd,
                    lambda: B.blend2d_bwd_plain(attrs, ranges, out_k, cot,
                                                tx, ty),
                    BWD2_OPS_PER_PAIR * pairs
                    + BWD2_OPS_PER_CONTRIB * contrib,
-                   live_bytes + 2 * out_bytes + attrs.numel() * 4)]
+                   live_bytes + 2 * out_bytes + attrs.numel() * 4,
+                   v1=bwd_v1)]
     print(f"[report 2dgs] surfel blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs before "
           f"saturation, {contrib} contributing; loss terms {terms_line}",
@@ -954,15 +1015,16 @@ def phase_report_pgsr(trainer, launches, dev):
         assert float(peak) > 0, (lo, hi)
         cot[..., lo:hi] /= peak
     cot = cot.contiguous()
-    d_k = B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx, ty)
+    bwd = partial(B.blend_pgsr_bwd, attrs, ranges, out_k, cot, tx, ty)
+    bwd_v1 = partial(B.blend_pgsr_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
+    d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
-    assert_rows_close(d_k, d_p, [r for r in range(B.NUM_ATTRS_P)
-                                 if r != B.P_OBS])
-    assert torch.equal(d_k[B.P_OBS], d_p[B.P_OBS])
-    assert torch.equal(d_k[B.P_OBS], obs_k)
-    assert torch.equal(d_k, B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx,
-                                             ty))
+    grad_rows = [r for r in range(B.NUM_ATTRS_P) if r != B.P_OBS]
+    same = assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P,
+                                bwd, bwd_v1)
+    for d in (d_k, d_v1):
+        assert torch.equal(d[B.P_OBS], d_p[B.P_OBS])
+        assert torch.equal(d[B.P_OBS], obs_k)
     # the normal and distance channels' cotangents are large at few pixels
     # (the plane depth divides by n . ray), so those rows can stay below
     # 100 x atol; the per-row comparison above holds each in units of its
@@ -972,7 +1034,9 @@ def phase_report_pgsr(trainer, launches, dev):
     print(f"[report pgsr] largest plain value per row: "
           f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
           f"{int((grad_max > 100 * BWD_TOL['atol']).sum())} of "
-          f"{B.LIVE_ATTRS_P} live rows above 100 x atol")
+          f"{B.LIVE_ATTRS_P} live rows above 100 x atol; v1 max|err| "
+          f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: "
+          f"{'yes' if same else 'no'}")
 
     pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
     n_inst = attrs.shape[1]
@@ -996,13 +1060,12 @@ def phase_report_pgsr(trainer, launches, dev):
                    OBSP_OPS_PER_PAIR * pairs,
                    B.P_RGB * n_inst * 4 + range_bytes + n_inst * 4),
         report_row("blend_pgsr_bwd", src, f"{pallas}:216",
-                   launches["blend_pgsr_bwd"], max_err(d_k, d_p),
-                   lambda: B.blend_pgsr_bwd(attrs, ranges, out_k, cot, tx,
-                                            ty),
+                   launches["blend_pgsr_bwd"], max_err(d_k, d_p), bwd,
                    lambda: B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot,
                                                   tx, ty),
                    BWDP_OPS_PER_PAIR * pairs + BWDP_OPS_PER_CONTRIB * contrib,
-                   live_bytes + 2 * map_bytes + attrs.numel() * 4)]
+                   live_bytes + 2 * map_bytes + attrs.numel() * 4,
+                   v1=bwd_v1)]
     print(f"[report pgsr] planar blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs before "
           f"saturation, {contrib} contributing, {int(obs_k.sum())} observed; "
@@ -1025,7 +1088,7 @@ def main(argv=None) -> int:
     print(f"[card] {card_line}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    phase_build()
+    phase_build(dev)
     phase_kernels(dev)
     phase_kernels2d(dev)
     phase_kernels_pgsr(dev)

@@ -21,14 +21,28 @@
 // What bounds them on the H100: per (pixel, instance) pair up to the tile's
 // saturation the forward does one reciprocal, one expf and ~45 FP32
 // operations; the backward redoes those and adds ~75 operations of gradient
-// terms and a 21-row warp reduction (5 shuffles a row). Attribute bytes (84
+// terms and the sum of 21 rows over the tile's pixels. Attribute bytes (84
 // per instance, read once per tile) are small beside that, so both are
 // bound by FP32 and MUFU work, not by memory. The design stages each
 // chunk's 21 live rows (10.75 KB) in shared memory for all 256 pixels of
-// the tile, stops a tile's walk once no pixel has D >= 1e-4, skips a warp's
-// reduction for an instance that touches none of its pixels, and reduces
-// the backward's rows in groups of 32 instances so its shared memory stays
-// under the 48 KB static limit.
+// the tile, stops a tile's walk once no pixel has D >= 1e-4, and skips a
+// warp's reduction for an instance that touches none of its pixels.
+//
+// The backward's sum over pixels: an xor butterfly per row takes 5
+// shuffles and 5 adds a row and lane, 105 shuffles per warp and instance,
+// and an SM retires one warp shuffle per clock. blend2d_bwd_kernel pads the
+// 21 terms to 32 and sums them with one warp reduce-scatter (common.cuh:
+// 31 shuffles, 31 adds and 40 selects, the 11 zero pad rows needing none),
+// after which lane k holds row k: 21 lanes store the warp's partials with
+// one coalesced shared-memory write. The partials of a whole chunk
+// ([warp][instance][row], 84 KB of dynamic shared memory) are summed over
+// the 8 warps once per chunk, so a chunk costs three barriers, not ten; at
+// <= 128 registers two blocks stay resident per SM. What is left bounds it
+// by instruction dispatch: the surfel evaluation on every walked instance and
+// the gradient terms where it contributes. blend2d_bwd_v1_kernel is the first
+// design (a butterfly per row, lane 0 writing the partials, the warps
+// summed every 32 instances), kept as the yardstick the redesign is timed
+// against; no main path launches it.
 //
 // Agreement with the plain version: every operation on the path to an
 // alpha, depth, D or median decision is rounded once (the _rn intrinsics
@@ -36,8 +50,8 @@
 // same decisions.
 //
 // Determinism: exactly one block writes each instance's gradient slot, and
-// every sum over pixels runs in a fixed order (xor-shuffle butterfly within
-// a warp, then the 8 warp partials in warp order): no atomics.
+// every sum over pixels runs in a fixed order (within a warp, then the 8
+// warp partials in warp order): no atomics.
 
 #include "common.cuh"
 
@@ -47,13 +61,19 @@ using namespace gssr;
 
 constexpr int LIVE2 = 21;
 constexpr int OUT2 = 16;
-constexpr int GROUP = 32;         // instances per backward reduction
+constexpr int GROUP_V1 = 32;      // instances per v1 backward reduction
 constexpr float NEAR_N = 0.2f;
 constexpr float M_COEF = static_cast<float>(100.0 / (100.0 - 0.2));
 enum { XY = 0, CA = 2, CB = 5, CC = 8, TW = 11, OPC = 14, RGB = 15,
        NRM = 18 };
 enum { O_RGB = 0, O_NRM = 3, O_D = 6, O_DIST = 7, O_T = 8, O_MED = 9,
        O_SEL = 10, O_MEDNRM = 11, O_S1 = 14, O_S2 = 15 };
+// dynamic shared memory of blend2d_bwd_kernel: the staged chunk and the
+// warp partials of all its instances, [warp][instance][row]. The row
+// stride, 21, is odd, so the cross-warp pass's reads down an instance
+// column hit 32 banks, as do the lanes' stores along a row.
+constexpr int BWD2_SMEM =
+    (LIVE2 * CHUNK + WARPS * CHUNK * LIVE2) * static_cast<int>(sizeof(float));
 
 struct Surfel {
   float a, rpz, s0, s1, dx, dy, depth, safe_depth, m, g, raw;
@@ -172,111 +192,170 @@ blend2d_fwd_kernel(const float* __restrict__ attrs, long long n_inst,
     q[j] = make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
 }
 
-__global__ void __launch_bounds__(PIX)
+// One pixel's side of the surfel backward: its cotangents, the totals a
+// first pass would rebuild, and the running D and prefix of its walk.
+struct SurfelBwdPixel {
+  float px, py, c[OUT2], S0, S1, S2, sel, total_wb, bgterm;
+  float D = 1.f, prefix = 0.f;
+
+  // the totals are read from the forward: each base channel is linear in
+  // w, so its total is the forward's map contracted with its cotangent;
+  // S0 = 1 - final_T telescopes
+  __device__ __forceinline__ SurfelBwdPixel(const float* __restrict__ fwd_out,
+                                            const float* __restrict__ cot,
+                                            long long pix, float x, float y)
+      : px(x), py(y) {
+    float f[OUT2];
+    load_px16(fwd_out, pix, f);
+    load_px16(cot, pix, c);
+    S0 = 1.f - f[O_T];
+    S1 = f[O_S1];
+    S2 = f[O_S2];
+    sel = f[O_SEL];
+    total_wb = c[O_D] * f[O_D];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) total_wb += c[O_RGB + k] * f[O_RGB + k];
+    total_wb += c[O_DIST] * 2.f * (S0 * S2 - S1 * S1);
+    bgterm = f[O_T] * c[O_T];
+  }
+
+  // instance i of the staged chunk, at sorted position k0 + i of its tile:
+  // where it contributes at this pixel, its 21 gradient terms go to
+  // v[0, LIVE2) and the result is true; elsewhere v is left as it is
+  __device__ __forceinline__ bool step(const float (*s)[CHUNK], int i,
+                                       float k0, float* v) {
+    if (!(D >= T_EPS)) return false;
+    const Surfel sf = surfel_alpha(s, i, px, py);
+    if (!(sf.a > 0.f)) return false;
+    const float one_m = __fsub_rn(1.f, sf.a);
+    const float Dn = __fmul_rn(D, one_m);
+    bool hit = false;
+    if (Dn >= T_EPS) {
+      const float dD = c[O_D], ddist = c[O_DIST];
+      const float w = sf.a * D;
+      const float m = sf.m;
+      float base_c = sf.depth * dD;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        base_c += c[O_RGB + k] * s[RGB + k][i] + c[O_NRM + k] * s[NRM + k][i];
+      const float beta = base_c + ddist * (m * m * S0 + S2 - 2.f * m * S1);
+      prefix += w * beta;
+      const float da = D * beta - (total_wb - prefix + bgterm) / one_m;
+      // alpha = min(0.99, op * g): no gradient through the clamp
+      const float da_eff = sf.raw < ALPHA_MAX ? da : 0.f;
+      const bool onehot = sel >= 0.f && k0 + (float)i == sel;
+      const float dm_dd = M_COEF * NEAR_N / (sf.safe_depth * sf.safe_depth);
+      const float gdepth = w * dD
+          + ddist * 2.f * w * (m * S0 - S1) * dm_dd
+          + (onehot ? c[O_MED] : 0.f);
+      const float grho = da_eff * -0.5f * sf.raw;
+      const float g2d = sf.is3d ? 0.f : grho;
+      const float g3d = sf.is3d ? grho : 0.f;
+      const float gs0 =
+          g3d * 2.f * sf.s0 + (sf.is3d ? gdepth * s[TW][i] : 0.f);
+      const float gs1 =
+          g3d * 2.f * sf.s1 + (sf.is3d ? gdepth * s[TW + 1][i] : 0.f);
+      const float gp[3] = {gs0 * sf.rpz, gs1 * sf.rpz,
+                           -(sf.s0 * gs0 + sf.s1 * gs1) * sf.rpz};
+      v[0] = g2d * 4.f * sf.dx;
+      v[1] = g2d * 4.f * sf.dy;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        v[CA + k] = gp[k];
+        v[CB + k] = -px * gp[k];
+        v[CC + k] = -py * gp[k];
+        v[RGB + k] = w * c[O_RGB + k];
+        v[NRM + k] = w * c[O_NRM + k] + (onehot ? c[O_MEDNRM + k] : 0.f);
+      }
+      v[TW] = sf.is3d ? gdepth * sf.s0 : 0.f;
+      v[TW + 1] = sf.is3d ? gdepth * sf.s1 : 0.f;
+      v[TW + 2] = gdepth;
+      v[OPC] = da_eff * sf.g;
+      hit = true;
+    }
+    D = Dn;
+    return hit;
+  }
+};
+
+__global__ void __launch_bounds__(PIX, 2)
 blend2d_bwd_kernel(const float* __restrict__ attrs, long long n_inst,
                    const int* __restrict__ ranges, int tiles_x,
                    const float* __restrict__ fwd_out,
                    const float* __restrict__ cot,
                    float* __restrict__ dattrs) {
-  __shared__ float s[LIVE2][CHUNK];
-  __shared__ float part[WARPS][LIVE2][GROUP];
+  extern __shared__ float smem[];
+  auto s = reinterpret_cast<float (*)[CHUNK]>(smem);
+  auto part = reinterpret_cast<float (*)[CHUNK][LIVE2]>(smem + LIVE2 * CHUNK);
   const int t = blockIdx.x, p = threadIdx.x;
   const int warp = p / 32, lane = p % 32;
   const int gx = (t % tiles_x) * TILE + p % TILE;
   const int gy = (t / tiles_x) * TILE + p / TILE;
-  const float px = (float)gx, py = (float)gy;
-  const long long pix = (long long)gy * (tiles_x * TILE) + gx;
-  float f[OUT2], c[OUT2];
-  load_px16(fwd_out, pix, f);
-  load_px16(cot, pix, c);
-  // the totals a first pass would rebuild, read from the forward: each
-  // base channel is linear in w, so its total is the forward's map
-  // contracted with its cotangent; S0 = 1 - final_T telescopes
-  const float S0 = 1.f - f[O_T], S1 = f[O_S1], S2 = f[O_S2];
-  const float dD = c[O_D], ddist = c[O_DIST], dmed = c[O_MED];
-  const float sel = f[O_SEL];
-  float total_wb = dD * f[O_D];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) total_wb += c[O_RGB + k] * f[O_RGB + k];
-  total_wb += ddist * 2.f * (S0 * S2 - S1 * S1);
-  const float bgterm = f[O_T] * c[O_T];
+  SurfelBwdPixel pixel(fwd_out, cot, (long long)gy * (tiles_x * TILE) + gx,
+                     (float)gx, (float)gy);
   const long long start = ranges[t], end = ranges[t + 1];
-  float D = 1.f, prefix = 0.f;
 
   for (long long base = start; base < end; base += CHUNK) {
-    // chunks after the tile saturates keep their zero gradient
-    if (!__syncthreads_or(D >= T_EPS)) break;
+    // chunks after the tile saturates keep their zero gradient; also the
+    // barrier before the staged chunk and the partials are overwritten
+    if (!__syncthreads_or(pixel.D >= T_EPS)) break;
     load_chunk<LIVE2>(s, attrs, n_inst, base);
     __syncthreads();
     const float k0 = (float)(base - start);
-    for (int g0 = 0; g0 < CHUNK; g0 += GROUP) {
-      for (int j = 0; j < GROUP; ++j) {
-        const int i = g0 + j;
-        float v[LIVE2];
+    for (int i = 0; i < CHUNK; ++i) {
+      float v[32] = {};               // rows 21-31 stay zero
+      const bool hit = pixel.step(s, i, k0, v);
+      float sum = 0.f;
+      if (__any_sync(FULL, hit)) sum = warp_reduce_scatter<LIVE2>(v, lane);
+      if (lane < LIVE2) part[warp][i][lane] = sum;
+    }
+    __syncthreads();
+    for (int q = p; q < LIVE2 * CHUNK; q += PIX) {
+      const int r = q / CHUNK, i = q % CHUNK;
+      float acc = 0.f;
 #pragma unroll
-        for (int k = 0; k < LIVE2; ++k) v[k] = 0.f;
-        bool hit = false;
-        if (D >= T_EPS) {
-          const Surfel sf = surfel_alpha(s, i, px, py);
-          if (sf.a > 0.f) {
-            const float one_m = __fsub_rn(1.f, sf.a);
-            const float Dn = __fmul_rn(D, one_m);
-            if (Dn >= T_EPS) {
-              const float w = sf.a * D;
-              const float m = sf.m;
-              float base_c = sf.depth * dD;
-#pragma unroll
-              for (int k = 0; k < 3; ++k)
-                base_c += c[O_RGB + k] * s[RGB + k][i]
-                          + c[O_NRM + k] * s[NRM + k][i];
-              const float beta =
-                  base_c + ddist * (m * m * S0 + S2 - 2.f * m * S1);
-              prefix += w * beta;
-              const float da = D * beta - (total_wb - prefix + bgterm) / one_m;
-              // alpha = min(0.99, op * g): no gradient through the clamp
-              const float da_eff = sf.raw < ALPHA_MAX ? da : 0.f;
-              const bool onehot = sel >= 0.f && k0 + (float)i == sel;
-              const float dm_dd =
-                  M_COEF * NEAR_N / (sf.safe_depth * sf.safe_depth);
-              const float gdepth = w * dD
-                  + ddist * 2.f * w * (m * S0 - S1) * dm_dd
-                  + (onehot ? dmed : 0.f);
-              const float grho = da_eff * -0.5f * sf.raw;
-              const float g2d = sf.is3d ? 0.f : grho;
-              const float g3d = sf.is3d ? grho : 0.f;
-              const float gs0 = g3d * 2.f * sf.s0
-                  + (sf.is3d ? gdepth * s[TW][i] : 0.f);
-              const float gs1 = g3d * 2.f * sf.s1
-                  + (sf.is3d ? gdepth * s[TW + 1][i] : 0.f);
-              const float gp[3] = {gs0 * sf.rpz, gs1 * sf.rpz,
-                                   -(sf.s0 * gs0 + sf.s1 * gs1) * sf.rpz};
-              v[0] = g2d * 4.f * sf.dx;
-              v[1] = g2d * 4.f * sf.dy;
-#pragma unroll
-              for (int k = 0; k < 3; ++k) {
-                v[CA + k] = gp[k];
-                v[CB + k] = -px * gp[k];
-                v[CC + k] = -py * gp[k];
-                v[RGB + k] = w * c[O_RGB + k];
-                v[NRM + k] = w * c[O_NRM + k]
-                    + (onehot ? c[O_MEDNRM + k] : 0.f);
-              }
-              v[TW] = sf.is3d ? gdepth * sf.s0 : 0.f;
-              v[TW + 1] = sf.is3d ? gdepth * sf.s1 : 0.f;
-              v[TW + 2] = gdepth;
-              v[OPC] = da_eff * sf.g;
-              hit = true;
-            }
-            D = Dn;
-          }
-        }
-        if (__any_sync(0xffffffffu, hit)) {
+      for (int w = 0; w < WARPS; ++w) acc += part[w][i][r];
+      dattrs[r * n_inst + base + i] = acc;
+    }
+  }
+}
+
+// the first design, kept as the yardstick of blend2d_bwd_kernel: an xor
+// butterfly per row, lane 0 writing the warp's 21 partials, the warps
+// summed every 32 instances in 21.5 KB of static shared memory
+__global__ void __launch_bounds__(PIX)
+blend2d_bwd_v1_kernel(const float* __restrict__ attrs, long long n_inst,
+                      const int* __restrict__ ranges, int tiles_x,
+                      const float* __restrict__ fwd_out,
+                      const float* __restrict__ cot,
+                      float* __restrict__ dattrs) {
+  __shared__ float s[LIVE2][CHUNK];
+  __shared__ float part[WARPS][LIVE2][GROUP_V1];
+  const int t = blockIdx.x, p = threadIdx.x;
+  const int warp = p / 32, lane = p % 32;
+  const int gx = (t % tiles_x) * TILE + p % TILE;
+  const int gy = (t / tiles_x) * TILE + p / TILE;
+  SurfelBwdPixel pixel(fwd_out, cot, (long long)gy * (tiles_x * TILE) + gx,
+                     (float)gx, (float)gy);
+  const long long start = ranges[t], end = ranges[t + 1];
+
+  for (long long base = start; base < end; base += CHUNK) {
+    // chunks after the tile saturates keep their zero gradient
+    if (!__syncthreads_or(pixel.D >= T_EPS)) break;
+    load_chunk<LIVE2>(s, attrs, n_inst, base);
+    __syncthreads();
+    const float k0 = (float)(base - start);
+    for (int g0 = 0; g0 < CHUNK; g0 += GROUP_V1) {
+      for (int j = 0; j < GROUP_V1; ++j) {
+        float v[LIVE2] = {};
+        const bool hit = pixel.step(s, g0 + j, k0, v);
+        if (__any_sync(FULL, hit)) {
 #pragma unroll
           for (int k = 0; k < LIVE2; ++k) {
             float x = v[k];
 #pragma unroll
             for (int off = 16; off > 0; off >>= 1)
-              x += __shfl_xor_sync(0xffffffffu, x, off);
+              x += __shfl_xor_sync(FULL, x, off);
             v[k] = x;
           }
         }
@@ -286,8 +365,8 @@ blend2d_bwd_kernel(const float* __restrict__ attrs, long long n_inst,
         }
       }
       __syncthreads();
-      for (int q = p; q < LIVE2 * GROUP; q += PIX) {
-        const int r = q / GROUP, col = q % GROUP;
+      for (int q = p; q < LIVE2 * GROUP_V1; q += PIX) {
+        const int r = q / GROUP_V1, col = q % GROUP_V1;
         float acc = 0.f;
 #pragma unroll
         for (int w = 0; w < WARPS; ++w) acc += part[w][r][col];
@@ -316,10 +395,30 @@ int gssr_blend2d_fwd(const float* attrs, long long n_inst, const int* ranges,
 int gssr_blend2d_bwd(const float* attrs, long long n_inst, const int* ranges,
                      int tiles_x, int tiles_y, const float* fwd_out,
                      const float* cot, float* dattrs, void* stream) {
-  blend2d_bwd_kernel<<<tiles_x * tiles_y, PIX, 0,
+  const cudaError_t e = allow_smem(blend2d_bwd_kernel, BWD2_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  blend2d_bwd_kernel<<<tiles_x * tiles_y, PIX, BWD2_SMEM,
                        static_cast<cudaStream_t>(stream)>>>(
       attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the same with the v1 kernel
+int gssr_blend2d_bwd_v1(const float* attrs, long long n_inst,
+                        const int* ranges, int tiles_x, int tiles_y,
+                        const float* fwd_out, const float* cot, float* dattrs,
+                        void* stream) {
+  blend2d_bwd_v1_kernel<<<tiles_x * tiles_y, PIX, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: blend2d_bwd_kernel's registers, local bytes, dynamic shared
+// bytes and resident blocks per SM (common.cuh::occupancy); the stream,
+// which every entry point takes, is not used
+int gssr_blend2d_bwd_occupancy(int* out, void* stream) {
+  return static_cast<int>(occupancy(blend2d_bwd_kernel, BWD2_SMEM, out));
 }
 
 }  // extern "C"

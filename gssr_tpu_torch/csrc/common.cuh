@@ -1,8 +1,9 @@
 // Shared by the blend kernels of csrc/: the tile and chunk geometry, the
 // alpha and transmittance thresholds of every blend, the staging of one
 // chunk's attribute rows in shared memory, the gaussian alpha of the
-// vanilla and planar blends, and the error string of the C interface. Each
-// source includes it once and builds into its own library.
+// vanilla and planar blends, the warp reduce-scatter of the surfel and
+// planar backwards, and the error string of the C interface. Each source
+// includes it once and builds into its own library.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,6 +14,7 @@ constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;
 constexpr int WARPS = PIX / 32;
 constexpr int CHUNK = 128;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
@@ -56,6 +58,73 @@ __device__ __forceinline__ Alpha chunk_alpha(const float (*s)[CHUNK], int i,
   const float alpha = fminf(ALPHA_MAX, o.raw);
   o.a = (power <= 0.f && alpha >= ALPHA_MIN) ? alpha : 0.f;
   return o;
+}
+
+// One step of warp_reduce_scatter at lane offset H: each lane keeps the
+// half of v[0, 2H) that its lane bit H selects, sends the other half to
+// lane ^ H and adds what it receives into v[0, H). The halves are picked
+// by selects with constant indices, never by a dynamic register index, so
+// v stays in registers. Entries from LIVE on are zero on every lane: where
+// the upper entry k + H is one of them, every lane adds its partner's v[k]
+// with no select, which is the sum of entry k on the lanes that keep the
+// lower half and stands in for the zero entry on the others.
+template <int H, int LIVE>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[32],
+                                                    int lane) {
+  const bool hi = (lane & H) != 0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    if (k + H >= LIVE) {
+      v[k] += __shfl_xor_sync(FULL, v[k], H);
+    } else {
+      const float keep = hi ? v[k + H] : v[k];
+      const float send = hi ? v[k] : v[k + H];
+      v[k] = keep + __shfl_xor_sync(FULL, send, H);
+    }
+  }
+  // below offset 16 a slot's entry depends on lane bit 4: no shortcut
+  if constexpr (H > 1) reduce_scatter_step<H / 2, 32>(v, lane);
+}
+
+// The warp's sum of v[k] over its 32 lanes, returned on lane k, for every
+// k < LIVE, where v[LIVE, 32) is zero on every lane (lanes LIVE-31 return
+// an unspecified value): recursive halving at offsets 16, 8, 4, 2 and 1,
+// 31 shuffles in all where an xor butterfly per entry takes 5 x 32. Each
+// sum adds the same pairs of lanes in the same order as that butterfly, so
+// the result is bitwise reproducible and equal to it. Clobbers v.
+template <int LIVE>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[32],
+                                                     int lane) {
+  static_assert(LIVE > 0 && LIVE <= 32, "a 32-vector");
+  reduce_scatter_step<16, LIVE>(v, lane);
+  return v[0];
+}
+
+// Let `kernel` take `smem` bytes of dynamic shared memory (above 48 KB it
+// has to be asked for) and the carveout that leaves the most of it.
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// out[4]: registers and local (spill) bytes per thread, dynamic shared
+// bytes, and resident blocks per SM of `kernel` at PIX threads a block
+template <typename K>
+cudaError_t occupancy(K kernel, int smem, int* out) {
+  cudaError_t e = allow_smem(kernel, smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, PIX,
+                                                       smem);
 }
 
 }  // namespace gssr

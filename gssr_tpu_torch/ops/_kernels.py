@@ -27,20 +27,28 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# source -> its C entry points: (argtypes without the trailing stream)
+_FWD = (_P, _I64, _P, _I32, _I32, _P)
+_BWD = (_P, _I64, _P, _I32, _I32, _P, _P, _P)
+# source -> its C entry points: (argtypes without the trailing stream). The
+# *_v1 backwards are the first designs, kept as the redesigns' yardstick;
+# *_occupancy report a kernel's registers, shared memory and blocks per SM.
 SOURCES = {
     "blend.cu": {
-        "gssr_blend_fwd": (_P, _I64, _P, _I32, _I32, _P),
-        "gssr_blend_bwd": (_P, _I64, _P, _I32, _I32, _P, _P, _P),
+        "gssr_blend_fwd": _FWD,
+        "gssr_blend_bwd": _BWD,
     },
     "blend2d.cu": {
-        "gssr_blend2d_fwd": (_P, _I64, _P, _I32, _I32, _P),
-        "gssr_blend2d_bwd": (_P, _I64, _P, _I32, _I32, _P, _P, _P),
+        "gssr_blend2d_fwd": _FWD,
+        "gssr_blend2d_bwd": _BWD,
+        "gssr_blend2d_bwd_v1": _BWD,
+        "gssr_blend2d_bwd_occupancy": (_P,),
     },
     "blend_pgsr.cu": {
-        "gssr_blend_pgsr_fwd": (_P, _I64, _P, _I32, _I32, _P),
-        "gssr_blend_pgsr_obs": (_P, _I64, _P, _I32, _I32, _P),
-        "gssr_blend_pgsr_bwd": (_P, _I64, _P, _I32, _I32, _P, _P, _P),
+        "gssr_blend_pgsr_fwd": _FWD,
+        "gssr_blend_pgsr_obs": _FWD,
+        "gssr_blend_pgsr_bwd": _BWD,
+        "gssr_blend_pgsr_bwd_v1": _BWD,
+        "gssr_blend_pgsr_bwd_occupancy": (_P,),
     },
 }
 
@@ -127,3 +135,13 @@ def launch(name: str, device: torch.device, *args):
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({error_string(err).decode()})")
+
+
+def occupancy(name: str, device: torch.device) -> dict:
+    """What occupancy entry point `name` reports of its kernel on
+    `device`: registers and local (spill) bytes per thread, dynamic shared
+    memory bytes per block, resident blocks per SM."""
+    out = (ctypes.c_int * 4)()
+    launch(name, device, out)
+    return dict(zip(("registers", "local_bytes", "dynamic_smem",
+                     "blocks_per_sm"), out))

@@ -5,7 +5,8 @@ The TPU kernels `_fwd2_kernel` and `_bwd2_kernel` become the CUDA kernels
 of csrc/blend2d.cu; beside each is its plain PyTorch version
 (`blend2d_fwd_plain`, `blend2d_bwd_plain`), which the wrappers take for
 CPU tensors only. On a CUDA tensor a wrapper launches its kernel or
-raises.
+raises. `blend2d_bwd_v1` launches the backward's first design, kept as the
+yardstick of the current one; no render calls it.
 
 Layouts:
 * instance attributes [NUM_ATTRS2, I], attribute-major, 21 live rows
@@ -86,7 +87,7 @@ M_COEF = FAR_N / (FAR_N - NEAR_N)
 PLAIN_TILE_BATCH = 1024
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"blend2d_fwd": 0, "blend2d_bwd": 0}
+LAUNCHES = {"blend2d_fwd": 0, "blend2d_bwd": 0, "blend2d_bwd_v1": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -334,20 +335,34 @@ def blend2d_fwd(attrs, ranges, tiles_x: int, tiles_y: int):
     return out
 
 
-def blend2d_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
-    """Backward surfel blend -> d(attrs) [NUM_ATTRS2, I]."""
+def _bwd(kernel: str, attrs, ranges, fwd_out, cot, tiles_x: int,
+         tiles_y: int):
     if attrs.device.type == "cpu":
         return blend2d_bwd_plain(attrs, ranges, fwd_out, cot, tiles_x,
                                  tiles_y)
     _check_inputs(attrs, ranges, tiles_x, tiles_y, fwd_out, cot)
     # chunks past a tile's saturation and rows 21-23 stay zero
     dattrs = torch.zeros_like(attrs)
-    _kernels.launch("gssr_blend2d_bwd", attrs.device, _ptr(attrs),
+    _kernels.launch(f"gssr_{kernel}", attrs.device, _ptr(attrs),
                     ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
                     ctypes.c_int(tiles_x), ctypes.c_int(tiles_y),
                     _ptr(fwd_out), _ptr(cot), _ptr(dattrs))
-    LAUNCHES["blend2d_bwd"] += 1
+    LAUNCHES[kernel] += 1
     return dattrs
+
+
+def blend2d_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
+    """Backward surfel blend -> d(attrs) [NUM_ATTRS2, I]."""
+    return _bwd("blend2d_bwd", attrs, ranges, fwd_out, cot, tiles_x,
+                tiles_y)
+
+
+def blend2d_bwd_v1(attrs, ranges, fwd_out, cot, tiles_x: int,
+                   tiles_y: int):
+    """The same through the first backward kernel, the yardstick of the
+    current one; no render calls it."""
+    return _bwd("blend2d_bwd_v1", attrs, ranges, fwd_out, cot, tiles_x,
+                tiles_y)
 
 
 # output rows that carry no gradient: the median's position is an index,

@@ -5,7 +5,9 @@ The TPU kernels `_fwdp_kernel`, `_obsp_kernel` and `_bwdp_kernel` become
 the CUDA kernels of csrc/blend_pgsr.cu; beside each is its plain PyTorch
 version (`blend_pgsr_fwd_plain`, `blend_pgsr_obs_plain`,
 `blend_pgsr_bwd_plain`), which the wrappers take for CPU tensors only. On a
-CUDA tensor a wrapper launches its kernel or raises.
+CUDA tensor a wrapper launches its kernel or raises. `blend_pgsr_bwd_v1`
+launches the backward's first design, kept as the yardstick of the current
+one; no render calls it.
 
 Layouts:
 * instance attributes [NUM_ATTRS_P, I], attribute-major: rows 0-5 the
@@ -68,7 +70,8 @@ PO_T = 7
 OUTP_ROWS = 8
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"blend_pgsr_fwd": 0, "blend_pgsr_obs": 0, "blend_pgsr_bwd": 0}
+LAUNCHES = {"blend_pgsr_fwd": 0, "blend_pgsr_obs": 0, "blend_pgsr_bwd": 0,
+            "blend_pgsr_bwd_v1": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -226,20 +229,34 @@ def blend_pgsr_observe(attrs, ranges, tiles_x: int, tiles_y: int):
     return obs
 
 
-def blend_pgsr_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
-    """Backward planar blend -> d(attrs) [NUM_ATTRS_P, I], rows 13-15 the
-    observe counts and abs screen gradients."""
+def _bwd(kernel: str, attrs, ranges, fwd_out, cot, tiles_x: int,
+         tiles_y: int):
     if attrs.device.type == "cpu":
         return blend_pgsr_bwd_plain(attrs, ranges, fwd_out, cot, tiles_x,
                                     tiles_y)
     _check_inputs(attrs, ranges, tiles_x, tiles_y, fwd_out, cot)
     # chunks past a tile's saturation stay zero
     dattrs = torch.zeros_like(attrs)
-    _kernels.launch("gssr_blend_pgsr_bwd", attrs.device,
+    _kernels.launch(f"gssr_{kernel}", attrs.device,
                     *_args(attrs, ranges, tiles_x, tiles_y), _ptr(fwd_out),
                     _ptr(cot), _ptr(dattrs))
-    LAUNCHES["blend_pgsr_bwd"] += 1
+    LAUNCHES[kernel] += 1
     return dattrs
+
+
+def blend_pgsr_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
+    """Backward planar blend -> d(attrs) [NUM_ATTRS_P, I], rows 13-15 the
+    observe counts and abs screen gradients."""
+    return _bwd("blend_pgsr_bwd", attrs, ranges, fwd_out, cot, tiles_x,
+                tiles_y)
+
+
+def blend_pgsr_bwd_v1(attrs, ranges, fwd_out, cot, tiles_x: int,
+                      tiles_y: int):
+    """The same through the first backward kernel, the yardstick of the
+    current one; no render calls it."""
+    return _bwd("blend_pgsr_bwd_v1", attrs, ranges, fwd_out, cot, tiles_x,
+                tiles_y)
 
 
 class _BlendPCore(torch.autograd.Function):

@@ -135,7 +135,9 @@ def test_blend2d_pair_count_counts_the_walked_pairs():
 
 @pytest.mark.cuda
 def test_blend2d_kernels_match_plain_on_the_card():
-    """CUDA kernels against their plain versions on the same inputs."""
+    """CUDA kernels against their plain versions on the same inputs; the
+    backward and its first design (blend2d_bwd_v1) also against each other
+    and each twice, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
                     "at full size")
@@ -150,7 +152,11 @@ def test_blend2d_kernels_match_plain_on_the_card():
     torch.testing.assert_close(out_k, out_p, atol=1e-5, rtol=1e-4)
     assert torch.equal(out_k[..., B.O_SELPOS], out_p[..., B.O_SELPOS])
     cot = torch.randn(out_k.shape, device=dev)
-    d_k = B.blend2d_bwd(a, r, out_k, cot, tx, ty)
     d_p = B.blend2d_bwd_plain(a, r, out_k, cot, tx, ty)
-    torch.testing.assert_close(d_k, d_p, atol=2e-4, rtol=2e-3)
-    assert torch.equal(d_k, B.blend2d_bwd(a, r, out_k, cot, tx, ty))
+    d_k = {}
+    for bwd in (B.blend2d_bwd, B.blend2d_bwd_v1):
+        d_k[bwd] = bwd(a, r, out_k, cot, tx, ty)
+        torch.testing.assert_close(d_k[bwd], d_p, atol=2e-4, rtol=2e-3)
+        assert torch.equal(d_k[bwd], bwd(a, r, out_k, cot, tx, ty))
+    torch.testing.assert_close(d_k[B.blend2d_bwd], d_k[B.blend2d_bwd_v1],
+                               atol=2e-4, rtol=2e-3)

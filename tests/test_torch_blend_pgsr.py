@@ -152,7 +152,9 @@ def test_pgsr_pair_count_counts_the_walked_pairs():
 @pytest.mark.cuda
 def test_planar_kernels_match_plain_on_the_card():
     """The three CUDA kernels against their plain versions on the same
-    inputs; the backward twice, bit for bit."""
+    inputs; the backward and its first design (blend_pgsr_bwd_v1) also
+    against each other and each twice, bit for bit, with the observe
+    kernel's counts in row 13."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
                     "at full size")
@@ -168,8 +170,13 @@ def test_planar_kernels_match_plain_on_the_card():
     obs_k = B.blend_pgsr_observe(a, r, tx, ty)
     assert torch.equal(obs_k, B.blend_pgsr_obs_plain(a, r, tx, ty))
     cot = torch.randn(out_k.shape, device=dev)
-    d_k = B.blend_pgsr_bwd(a, r, out_k, cot, tx, ty)
     d_p = B.blend_pgsr_bwd_plain(a, r, out_k, cot, tx, ty)
-    torch.testing.assert_close(d_k, d_p, atol=2e-4, rtol=2e-3)
-    assert torch.equal(d_k[B.P_OBS], obs_k)
-    assert torch.equal(d_k, B.blend_pgsr_bwd(a, r, out_k, cot, tx, ty))
+    d_k = {}
+    for bwd in (B.blend_pgsr_bwd, B.blend_pgsr_bwd_v1):
+        d_k[bwd] = bwd(a, r, out_k, cot, tx, ty)
+        torch.testing.assert_close(d_k[bwd], d_p, atol=2e-4, rtol=2e-3)
+        assert torch.equal(d_k[bwd][B.P_OBS], obs_k)
+        assert torch.equal(d_k[bwd], bwd(a, r, out_k, cot, tx, ty))
+    torch.testing.assert_close(d_k[B.blend_pgsr_bwd],
+                               d_k[B.blend_pgsr_bwd_v1], atol=2e-4,
+                               rtol=2e-3)
