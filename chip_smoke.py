@@ -7,9 +7,12 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
 
 1. build    one nvcc per source of gssr_tpu_torch/csrc/, all started
             together, for sm_90a; prints the build seconds, the registers
-            and spills, and the card; for the surfel and planar backwards
-            also their dynamic shared memory and resident blocks per SM,
-            which must be at least 2 and 3.
+            and spills, and the card; for the four redesigned kernels
+            (vanilla backward, surfel forward and backward, planar
+            backward) also their dynamic shared memory and resident blocks
+            per SM, which must be at least 3, 3, 2 and 3, with no spill.
+            (`python -m gssr_tpu_torch.sass_count` prints the kernels'
+            SASS instruction counts.)
 2. kernels  each blend kernel against its plain PyTorch version on the
             card at 256x256: the vanilla pair with ~20k gaussians, the
             surfel pair with ~20k surfels, the planar (PGSR) forward,
@@ -19,9 +22,10 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             observe count its T > 0.5 cut-off) and a seeded randn
             cotangent; each backward runs twice and must agree bit for bit,
             and the planar backward's observe row must equal the observe
-            kernel's counts. The surfel and planar backwards' first designs
-            (the *_v1 kernels, their yardstick) pass the same checks and
-            agree with the current ones; both are timed in turns.
+            kernel's counts. The first designs of the four redesigned
+            kernels (the *_v1 kernels, their yardstick) pass the same checks
+            and must equal the current ones bit for bit; each pair is timed
+            in turns.
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
@@ -48,10 +52,17 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             pair under that of the 2dgs loss with both regularisers live
             plus a random one on median_normal, the planar kernels under
             that of the pgsr multi-view loss, each channel group scaled to
-            unit size; with times and bounds, the surfel and planar
-            backwards timed in turns with their v1 kernels (plain, v1, new,
-            new, v1; "v1_ms" in their rows). Prints the {"kernels": [...]}
-            line, the card, and last the {"ok": true, "device": {...}} line.
+            unit size; with times and bounds, the four redesigned kernels
+            timed in turns with their v1 kernels (plain, v1, new, new, v1;
+            "v1_ms" in their rows) after asserting that each equals its v1
+            bit for bit. At the 2dgs inputs it also prints, from the plain
+            version of the surfel forward's cull, the share of evaluated
+            pairs the cull skips, on which the surfel kernels' bounds count
+            only the cull's test, and the share of (warp, instance) steps
+            in which every walking lane of a warp's 8 x 4 block skips.
+            Prints the
+            {"kernels": [...]} line, the card, and last the {"ok": true,
+            "device": {...}} line.
 
 --profile FILE adds three profiled train steps to each path after phase 3
 and writes torch.profiler's per-kernel tables to FILE (3dgs) and to FILE
@@ -81,12 +92,14 @@ PEAK_BYTES = 3.35e12
 FWD_OPS_PER_PAIR = 28
 BWD_OPS_PER_PAIR = 56
 # the same for the surfel kernels of gssr_tpu_torch/csrc/blend2d.cu: per
-# evaluated pair (the surfel and the transmittance walk) and per
-# contributing pair (the sums, or the gradient terms and one add a row for
-# the sum over pixels)
-FWD2_OPS_PER_PAIR = 49
+# evaluated pair (the surfel and the transmittance walk), per contributing
+# pair (the sums, or the gradient terms and one add a row for the sum over
+# pixels), and per evaluated pair that the forward's cull proves to have
+# alpha 0 (the intersection and rho2d, 18, and the cull's test, 9), which
+# both kernels then need no more for
+SURFEL_OPS_PER_PAIR = 49
+SURFEL_OPS_PER_CULLED = 27
 FWD2_OPS_PER_CONTRIB = 30
-BWD2_OPS_PER_PAIR = 49
 BWD2_OPS_PER_CONTRIB = 103
 # the same for the planar kernels of gssr_tpu_torch/csrc/blend_pgsr.cu: per
 # evaluated pair the gaussian (17) and the walk (5), and for the observe
@@ -122,12 +135,15 @@ MESH_METHODS = {"2dgs": ("bounded", "unbounded"), "pgsr": ("bounded",)}
 PATH_KERNELS = {"3dgs": ("blend_fwd", "blend_bwd"),
                 "2dgs": ("blend2d_fwd", "blend2d_bwd"),
                 "pgsr": ("blend_pgsr_fwd", "blend_pgsr_bwd")}
-# the first backward designs, kept as the yardstick of the current ones:
-# no render may launch them
-V1_KERNELS = ("blend2d_bwd_v1", "blend_pgsr_bwd_v1")
-# the redesigned backwards' occupancy entry points and the resident blocks
-# per SM each must keep
-OCCUPANCY = {"gssr_blend2d_bwd_occupancy": 2,
+# the first designs of the redesigned kernels, kept as the yardstick of the
+# current ones: no render may launch them
+V1_KERNELS = ("blend_bwd_v1", "blend2d_fwd_v1", "blend2d_bwd_v1",
+              "blend_pgsr_bwd_v1")
+# the redesigned kernels' occupancy entry points and the resident blocks per
+# SM each must keep
+OCCUPANCY = {"gssr_blend_bwd_occupancy": 3,
+             "gssr_blend2d_fwd_occupancy": 3,
+             "gssr_blend2d_bwd_occupancy": 2,
              "gssr_blend_pgsr_bwd_occupancy": 3}
 # each path's options beyond the common ones
 METHOD_ARGS = {"pgsr": ["--scene.multi-view-from", str(MULTI_VIEW_FROM)]}
@@ -276,6 +292,7 @@ def phase_build(dev):
         occ = _kernels.occupancy(name, dev)
         print(f"[build] {name}: {occ}")
         assert occ["blocks_per_sm"] >= least, (name, occ)
+        assert occ["local_bytes"] == 0, (name, occ)
 
 
 # ---------------------------------------------------------------------------
@@ -296,25 +313,25 @@ def phase_kernels(dev):
     saturated = int((out_k[..., 3] < 1e-3).sum())
     assert saturated > 0, "the overdraw tile did not saturate"
     cot = torch.randn(out_k.shape, generator=g).to(dev)
-    d_k = B.blend_bwd(attrs, ranges, out_k, cot, tx, ty)
+    bwd = partial(B.blend_bwd, attrs, ranges, out_k, cot, tx, ty)
+    bwd_v1 = partial(B.blend_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
+    d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
-    assert torch.equal(d_k, B.blend_bwd(attrs, ranges, out_k, cot, tx, ty)), \
-        "the backward kernel is not deterministic"
+    assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS), B.LIVE_ATTRS,
+                         bwd, bwd_v1)
     fwd_ms = median_ms(lambda: B.blend_fwd(attrs, ranges, tx, ty), 20)
     fwd_plain_ms = median_ms(lambda: B.blend_fwd_plain(attrs, ranges, tx,
                                                        ty), 3)
-    bwd_ms = median_ms(lambda: B.blend_bwd(attrs, ranges, out_k, cot, tx,
-                                           ty), 20)
     bwd_plain_ms = median_ms(lambda: B.blend_bwd_plain(attrs, ranges, out_k,
                                                        cot, tx, ty), 3)
+    v1_ms, bwd_ms = turns_ms(bwd_v1, bwd)
     print(f"[kernels] 256x256, {n} gaussians, {attrs.shape[1]} instance "
           f"slots, {saturated} saturated pixels")
     print(f"[kernels] blend_fwd max|err| {max_err(out_k, out_p):.3e}  "
           f"{fwd_ms:.4f} ms  plain {fwd_plain_ms:.4f} ms")
     print(f"[kernels] blend_bwd max|err| {max_err(d_k, d_p):.3e}  "
-          f"{bwd_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  "
-          f"deterministic: yes")
+          f"{bwd_ms:.4f} ms  v1 {v1_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  "
+          f"deterministic: yes; bitwise equal to v1: yes")
 
 
 def overdraw_scene(g, n, n_dense, scale_dim):
@@ -351,10 +368,11 @@ def phase_kernels2d(dev):
     cam = camera(256, 256).arrays(dev)
     attrs, ranges, tx, ty = blend2d_inputs(*(x.to(dev) for x in scene), cam,
                                            256, 256)
-    out_k = B.blend2d_fwd(attrs, ranges, tx, ty)
+    fwd = partial(B.blend2d_fwd, attrs, ranges, tx, ty)
+    fwd_v1 = partial(B.blend2d_fwd_v1, attrs, ranges, tx, ty)
+    out_k = fwd()
     out_p = B.blend2d_fwd_plain(attrs, ranges, tx, ty)
-    torch.testing.assert_close(out_k, out_p, **FWD_TOL)
-    assert torch.equal(out_k[..., B.O_SELPOS], out_p[..., B.O_SELPOS])
+    assert_forward_pair(out_k, fwd_v1(), out_p, B.O_SELPOS)
     saturated = int((out_k[..., B.O_T] < 1e-3).sum())
     medians = int((out_k[..., B.O_SELPOS] >= 0).sum())
     assert saturated > 0, "the overdraw stack did not saturate"
@@ -365,18 +383,18 @@ def phase_kernels2d(dev):
     bwd_v1 = partial(B.blend2d_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
     d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    same = assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2),
-                                B.LIVE_ATTRS2, bwd, bwd_v1)
-    fwd_ms = median_ms(lambda: B.blend2d_fwd(attrs, ranges, tx, ty), 20)
+    assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2), B.LIVE_ATTRS2,
+                         bwd, bwd_v1)
+    fwd_v1_ms, fwd_ms = turns_ms(fwd_v1, fwd)
     v1_ms, bwd_ms = turns_ms(bwd_v1, bwd)
     print(f"[kernels2d] 256x256, {n} surfels, {attrs.shape[1]} instance "
           f"slots, {saturated} saturated pixels, {medians} with a median")
     print(f"[kernels2d] blend2d_fwd max|err| {max_err(out_k, out_p):.3e}  "
-          f"{fwd_ms:.4f} ms")
+          f"{fwd_ms:.4f} ms  v1 {fwd_v1_ms:.4f} ms  bitwise equal to v1: "
+          f"yes")
     print(f"[kernels2d] blend2d_bwd max|err| {max_err(d_k, d_p):.3e}  "
           f"{bwd_ms:.4f} ms  v1 max|err| {max_err(d_v1, d_p):.3e}  "
-          f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: "
-          f"{'yes' if same else 'no'}")
+          f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: yes")
 
 
 def phase_kernels_pgsr(dev):
@@ -418,8 +436,8 @@ def phase_kernels_pgsr(dev):
     d_p = B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
     # every row but the observe count is a gradient
     grad_rows = [r for r in range(B.NUM_ATTRS_P) if r != B.P_OBS]
-    same = assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P,
-                                bwd, bwd_v1)
+    assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P, bwd,
+                         bwd_v1)
     for d in (d_k, d_v1):
         assert torch.equal(d[B.P_OBS], d_p[B.P_OBS])
         assert torch.equal(d[B.P_OBS], obs_k)
@@ -436,9 +454,8 @@ def phase_kernels_pgsr(dev):
     print(f"[kernels pgsr] blend_pgsr_obs exact  {obs_ms:.4f} ms")
     print(f"[kernels pgsr] blend_pgsr_bwd max|err| {max_err(d_k, d_p):.3e}  "
           f"{bwd_ms:.4f} ms  v1 max|err| {max_err(d_v1, d_p):.3e}  "
-          f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: "
-          f"{'yes' if same else 'no'}; observe row = observe kernel, per "
-          f"slot and per gaussian")
+          f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: yes; "
+          f"observe row = observe kernel, per slot and per gaussian")
 
 
 # ---------------------------------------------------------------------------
@@ -736,6 +753,39 @@ def bound(ops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+@torch.no_grad()
+def surfel_cull_counts(attrs, ranges, tiles_x, tiles_y):
+    """What the surfel forward's cull skips on these inputs, from its plain
+    version: (evaluated pairs, as blend2d_pair_count counts them; those the
+    cull skips; (warp, instance) steps in which some lane of a warp's 8 x 4
+    pixel block evaluates the pair; those in which every such lane skips
+    it). A lane's skip saves issue slots only in such a whole step."""
+    from gssr_tpu_torch.ops import blend2d as B
+    from gssr_tpu_torch.ops.blend import T_EPS, _chunks, _pixel_coords, _walk
+    px, py = _pixel_coords(tiles_x, tiles_y, attrs.device)
+    attrs = attrs[:B.LIVE_ATTRS2]
+
+    def warps(x):     # [T, 256, C] row-major in its tile -> [T, 8, 32, C]
+        t, c = x.shape[0], x.shape[-1]
+        x = x.reshape(t, 4, 4, 2, 8, c).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(t, 8, 32, c)
+
+    pairs = culled = steps = whole = 0
+    for t0, t1 in B._tile_batches(tiles_x * tiles_y):
+        x, y = px[t0:t1], py[t0:t1]
+        D = torch.ones_like(x)
+        for A, _, live in _chunks(attrs, ranges[t0:t1 + 1]):
+            _, d_before, _, _, D = _walk(B._surfel_alpha(A, x, y).a, D)
+            walked = (d_before >= T_EPS) & live[:, None, None]
+            exact = walked & ~B.surfel_cull_plain(A, x, y)
+            pairs += int(walked.sum())
+            culled += int(walked.sum() - exact.sum())
+            step = warps(walked).any(2)
+            steps += int(step.sum())
+            whole += int((step & ~warps(exact).any(2)).sum())
+    return pairs, culled, steps, whole
+
+
 def report_row(name, source, replaces, launches, err, fn, plain, ops,
                nbytes, v1=None):
     """The kernel's row of the {"kernels": [...]} line. With its v1 kernel
@@ -784,15 +834,23 @@ def assert_backward_pair(d_k, d_v1, d_p, rows, live, again, again_v1):
     """A redesigned backward kernel's result d_k and its v1 kernel's d_v1,
     each against the plain version's d_p as a whole and row by row (the
     gradient rows `rows`), rows from `live` on zero, and bit for bit on a
-    second run (again, again_v1); then against each other. Returns whether
-    the two kernels agree bit for bit."""
+    second run (again, again_v1); then against each other, bit for bit."""
     for d, rerun in ((d_k, again), (d_v1, again_v1)):
         torch.testing.assert_close(d, d_p, **BWD_TOL)
         assert_rows_close(d, d_p, rows)
         assert_zero_rows(d, live)
         assert torch.equal(d, rerun()), "a backward is not deterministic"
-    torch.testing.assert_close(d_k, d_v1, **BWD_TOL)
-    return torch.equal(d_k, d_v1)
+    assert torch.equal(d_k, d_v1), "a backward differs from its v1 kernel"
+
+
+def assert_forward_pair(out_k, out_v1, out_p, sel):
+    """A redesigned forward kernel's maps out_k and its v1 kernel's out_v1:
+    each against the plain version's out_p, the median's sorted position
+    (channel `sel`) exactly, and each other bit for bit on every channel."""
+    for out in (out_k, out_v1):
+        torch.testing.assert_close(out, out_p, **FWD_TOL)
+        assert torch.equal(out[..., sel], out_p[..., sel])
+    assert torch.equal(out_k, out_v1), "a forward differs from its v1 kernel"
 
 
 def phase_report(trainer, launches, dev):
@@ -823,11 +881,13 @@ def phase_report(trainer, launches, dev):
                                 scene.gt_device(cam_h), STEPS, cam).values())
     (cot,) = torch.autograd.grad(loss, f)
     cot = (cot / cot.abs().max()).contiguous()
-    d_k = B.blend_bwd(attrs, ranges, out_k, cot, tx, ty)
+    bwd = partial(B.blend_bwd, attrs, ranges, out_k, cot, tx, ty)
+    bwd_v1 = partial(B.blend_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
+    d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
     assert_live_rows(d_p, B.LIVE_ATTRS)
-    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
-    assert torch.equal(d_k, B.blend_bwd(attrs, ranges, out_k, cot, tx, ty))
+    assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS), B.LIVE_ATTRS,
+                         bwd, bwd_v1)
 
     pairs, _ = B.blend_pair_count(attrs, ranges, tx, ty)
     n_inst = attrs.shape[1]
@@ -841,12 +901,11 @@ def phase_report(trainer, launches, dev):
                    lambda: B.blend_fwd_plain(attrs, ranges, tx, ty),
                    FWD_OPS_PER_PAIR * pairs, live_bytes + hw * 16),
         report_row("blend_bwd", src, "gssr_tpu/ops/blend_pallas.py:265",
-                   launches["blend_bwd"], max_err(d_k, d_p),
-                   lambda: B.blend_bwd(attrs, ranges, out_k, cot, tx, ty),
+                   launches["blend_bwd"], max_err(d_k, d_p), bwd,
                    lambda: B.blend_bwd_plain(attrs, ranges, out_k, cot, tx,
                                              ty),
                    BWD_OPS_PER_PAIR * pairs,
-                   live_bytes + 2 * hw * 16 + attrs.numel() * 4)]
+                   live_bytes + 2 * hw * 16 + attrs.numel() * 4, v1=bwd_v1)]
     print(f"[report 3dgs] blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs "
           f"before saturation", flush=True)
@@ -875,10 +934,11 @@ def phase_report2d(trainer, launches, dev):
             p["xyz"], g.get_scaling(p), g.get_rotation(p),
             g.get_opacity(p)[:, 0], color, cam, scene.width, scene.height,
             active=state.active)
-    out_k = B.blend2d_fwd(attrs, ranges, tx, ty)
+    fwd = partial(B.blend2d_fwd, attrs, ranges, tx, ty)
+    fwd_v1 = partial(B.blend2d_fwd_v1, attrs, ranges, tx, ty)
+    out_k = fwd()
     out_p = B.blend2d_fwd_plain(attrs, ranges, tx, ty)
-    torch.testing.assert_close(out_k, out_p, **FWD_TOL)
-    assert torch.equal(out_k[..., B.O_SELPOS], out_p[..., B.O_SELPOS])
+    assert_forward_pair(out_k, fwd_v1(), out_p, B.O_SELPOS)
 
     scene.config = dataclasses.replace(scene.config, lambda_dist=1000.0,
                                        depth_ratio=0.5)
@@ -906,8 +966,8 @@ def phase_report2d(trainer, launches, dev):
     bwd_v1 = partial(B.blend2d_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
     d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    same = assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2),
-                                B.LIVE_ATTRS2, bwd, bwd_v1)
+    assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2), B.LIVE_ATTRS2,
+                         bwd, bwd_v1)
     # the rows of the low-pass centre and of CA stay far below the others
     # (dL/dCA carries 1/pz), so no one cotangent puts every row above
     # 100 x atol while the largest rows' rounding stays inside atol; the
@@ -917,10 +977,18 @@ def phase_report2d(trainer, launches, dev):
           f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
           f"{int((row_max > 100 * BWD_TOL['atol']).sum())} of "
           f"{B.LIVE_ATTRS2} rows above 100 x atol; v1 max|err| "
-          f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: "
-          f"{'yes' if same else 'no'}")
+          f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: yes")
 
     pairs, contrib = B.blend2d_pair_count(attrs, ranges, tx, ty)
+    walked, culled, steps, whole = surfel_cull_counts(attrs, ranges, tx, ty)
+    assert walked == pairs, (walked, pairs)
+    print(f"[report 2dgs] surfel forward cull (its plain version): skips "
+          f"{culled} of {pairs} evaluated pairs ({100 * culled / pairs:.2f} "
+          f"%); every walking lane of an 8 x 4 warp skips in {whole} of "
+          f"{steps} (warp, instance) steps ({100 * whole / steps:.2f} %)")
+    # both surfel kernels need the cull's test alone on the culled pairs
+    pair_ops = (SURFEL_OPS_PER_PAIR * (pairs - culled)
+                + SURFEL_OPS_PER_CULLED * culled)
     n_inst = attrs.shape[1]
     hw = out_k.shape[0] * out_k.shape[1]
     live_bytes = B.LIVE_ATTRS2 * n_inst * 4 + ranges.numel() * 4
@@ -928,18 +996,15 @@ def phase_report2d(trainer, launches, dev):
     src = "gssr_tpu_torch/csrc/blend2d.cu"
     rows = [
         report_row("blend2d_fwd", src, "gssr_tpu/ops/blend2d_pallas.py:127",
-                   launches["blend2d_fwd"], max_err(out_k, out_p),
-                   lambda: B.blend2d_fwd(attrs, ranges, tx, ty),
+                   launches["blend2d_fwd"], max_err(out_k, out_p), fwd,
                    lambda: B.blend2d_fwd_plain(attrs, ranges, tx, ty),
-                   FWD2_OPS_PER_PAIR * pairs
-                   + FWD2_OPS_PER_CONTRIB * contrib,
-                   live_bytes + out_bytes),
+                   pair_ops + FWD2_OPS_PER_CONTRIB * contrib,
+                   live_bytes + out_bytes, v1=fwd_v1),
         report_row("blend2d_bwd", src, "gssr_tpu/ops/blend2d_pallas.py:269",
                    launches["blend2d_bwd"], max_err(d_k, d_p), bwd,
                    lambda: B.blend2d_bwd_plain(attrs, ranges, out_k, cot,
                                                tx, ty),
-                   BWD2_OPS_PER_PAIR * pairs
-                   + BWD2_OPS_PER_CONTRIB * contrib,
+                   pair_ops + BWD2_OPS_PER_CONTRIB * contrib,
                    live_bytes + 2 * out_bytes + attrs.numel() * 4,
                    v1=bwd_v1)]
     print(f"[report 2dgs] surfel blend inputs: {tx * 16}x{ty * 16} padded, "
@@ -1020,8 +1085,8 @@ def phase_report_pgsr(trainer, launches, dev):
     d_k, d_v1 = bwd(), bwd_v1()
     d_p = B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
     grad_rows = [r for r in range(B.NUM_ATTRS_P) if r != B.P_OBS]
-    same = assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P,
-                                bwd, bwd_v1)
+    assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P, bwd,
+                         bwd_v1)
     for d in (d_k, d_v1):
         assert torch.equal(d[B.P_OBS], d_p[B.P_OBS])
         assert torch.equal(d[B.P_OBS], obs_k)
@@ -1035,8 +1100,7 @@ def phase_report_pgsr(trainer, launches, dev):
           f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
           f"{int((grad_max > 100 * BWD_TOL['atol']).sum())} of "
           f"{B.LIVE_ATTRS_P} live rows above 100 x atol; v1 max|err| "
-          f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: "
-          f"{'yes' if same else 'no'}")
+          f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: yes")
 
     pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
     n_inst = attrs.shape[1]

@@ -1,8 +1,8 @@
 // Shared by the blend kernels of csrc/: the tile and chunk geometry, the
 // alpha and transmittance thresholds of every blend, the staging of one
 // chunk's attribute rows in shared memory, the gaussian alpha of the
-// vanilla and planar blends, the warp reduce-scatter of the surfel and
-// planar backwards, and the error string of the C interface. Each source
+// vanilla and planar blends, the warp reduce-scatter of the backwards, the
+// occupancy report, and the error string of the C interface. Each source
 // includes it once and builds into its own library.
 #pragma once
 
@@ -113,10 +113,13 @@ cudaError_t allow_smem(K kernel, int smem) {
 }
 
 // out[4]: registers and local (spill) bytes per thread, dynamic shared
-// bytes, and resident blocks per SM of `kernel` at PIX threads a block
+// bytes, and resident blocks per SM of `kernel` at PIX threads a block.
+// A kernel with dynamic shared memory is given what its entry point asks
+// for (allow_smem); one with static shared memory only is left as its
+// launches find it.
 template <typename K>
 cudaError_t occupancy(K kernel, int smem, int* out) {
-  cudaError_t e = allow_smem(kernel, smem);
+  cudaError_t e = smem > 0 ? allow_smem(kernel, smem) : cudaSuccess;
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return e;

@@ -30,15 +30,19 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _FWD = (_P, _I64, _P, _I32, _I32, _P)
 _BWD = (_P, _I64, _P, _I32, _I32, _P, _P, _P)
 # source -> its C entry points: (argtypes without the trailing stream). The
-# *_v1 backwards are the first designs, kept as the redesigns' yardstick;
+# *_v1 kernels are the first designs, kept as the redesigns' yardstick;
 # *_occupancy report a kernel's registers, shared memory and blocks per SM.
 SOURCES = {
     "blend.cu": {
         "gssr_blend_fwd": _FWD,
         "gssr_blend_bwd": _BWD,
+        "gssr_blend_bwd_v1": _BWD,
+        "gssr_blend_bwd_occupancy": (_P,),
     },
     "blend2d.cu": {
         "gssr_blend2d_fwd": _FWD,
+        "gssr_blend2d_fwd_v1": _FWD,
+        "gssr_blend2d_fwd_occupancy": (_P,),
         "gssr_blend2d_bwd": _BWD,
         "gssr_blend2d_bwd_v1": _BWD,
         "gssr_blend2d_bwd_occupancy": (_P,),

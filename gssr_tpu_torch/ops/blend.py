@@ -5,6 +5,8 @@ The two TPU kernels `_fwd_kernel` and `_bwd_kernel` become the CUDA
 kernels of csrc/blend.cu; beside each is its plain PyTorch version
 (`blend_fwd_plain`, `blend_bwd_plain`), which the wrappers take for CPU
 tensors only. On a CUDA tensor a wrapper launches its kernel or raises.
+`blend_bwd_v1` launches the backward's first design, kept as the yardstick
+of the current one; no render calls it.
 
 Layouts:
 * instance attributes [NUM_ATTRS, I], attribute-major, 9 live rows
@@ -52,7 +54,7 @@ ALPHA_MAX = 0.99
 T_EPS = 1e-4
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
+LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0, "blend_bwd_v1": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -242,19 +244,31 @@ def blend_fwd(attrs, ranges, tiles_x: int, tiles_y: int):
     return out
 
 
-def blend_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
-    """Backward tile blend -> d(attrs) [NUM_ATTRS, I]."""
+def _bwd(kernel: str, attrs, ranges, fwd_out, cot, tiles_x: int,
+         tiles_y: int):
     if attrs.device.type == "cpu":
         return blend_bwd_plain(attrs, ranges, fwd_out, cot, tiles_x, tiles_y)
     _check_inputs(attrs, ranges, tiles_x, tiles_y, fwd_out, cot)
     # chunks past a tile's saturation and rows 9-15 stay zero
     dattrs = torch.zeros_like(attrs)
-    _kernels.launch("gssr_blend_bwd", attrs.device, _ptr(attrs),
+    _kernels.launch(f"gssr_{kernel}", attrs.device, _ptr(attrs),
                     ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
                     ctypes.c_int(tiles_x), ctypes.c_int(tiles_y),
                     _ptr(fwd_out), _ptr(cot), _ptr(dattrs))
-    LAUNCHES["blend_bwd"] += 1
+    LAUNCHES[kernel] += 1
     return dattrs
+
+
+def blend_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
+    """Backward tile blend -> d(attrs) [NUM_ATTRS, I]."""
+    return _bwd("blend_bwd", attrs, ranges, fwd_out, cot, tiles_x, tiles_y)
+
+
+def blend_bwd_v1(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
+    """The same through the first backward kernel, the yardstick of the
+    current one; no render calls it."""
+    return _bwd("blend_bwd_v1", attrs, ranges, fwd_out, cot, tiles_x,
+                tiles_y)
 
 
 class _BlendCore(torch.autograd.Function):

@@ -5,8 +5,11 @@ The TPU kernels `_fwd2_kernel` and `_bwd2_kernel` become the CUDA kernels
 of csrc/blend2d.cu; beside each is its plain PyTorch version
 (`blend2d_fwd_plain`, `blend2d_bwd_plain`), which the wrappers take for
 CPU tensors only. On a CUDA tensor a wrapper launches its kernel or
-raises. `blend2d_bwd_v1` launches the backward's first design, kept as the
-yardstick of the current one; no render calls it.
+raises. `blend2d_fwd_v1` and `blend2d_bwd_v1` launch the first designs,
+kept as the yardsticks of the current ones; no render calls them.
+`surfel_cull_plain` is the plain version of the forward kernel's cull,
+the test that skips a pair whose alpha is provably 0 before its divisions
+and exp.
 
 Layouts:
 * instance attributes [NUM_ATTRS2, I], attribute-major, 21 live rows
@@ -82,12 +85,19 @@ NEAR_N = 0.2
 FAR_N = 100.0
 M_COEF = FAR_N / (FAR_N - NEAR_N)
 
+# the forward kernel's cull (csrc/blend2d.cu): the limit on rho widened by
+# this factor and pad, and the floor of the 3D test's bound
+CULL_WIDEN = 1.0 + 2.0 ** -10
+CULL_PAD = 2.0 ** -10
+CULL_FLOOR = 2.0 ** -100
+
 # tiles the plain versions process at once, to bound their memory on the
 # card ([tiles, PIX, CHUNK] intermediates)
 PLAIN_TILE_BATCH = 1024
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"blend2d_fwd": 0, "blend2d_bwd": 0, "blend2d_bwd_v1": 0}
+LAUNCHES = {"blend2d_fwd": 0, "blend2d_fwd_v1": 0, "blend2d_bwd": 0,
+            "blend2d_bwd_v1": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +149,35 @@ def _surfel_alpha(A, px, py) -> _Surfel:
     m = M_COEF * (1.0 - NEAR_N / safe_depth)
     return _Surfel(torch.where(ok, alpha, 0.0), rpz, s0, s1, dx, dy, is3d,
                    depth, safe_depth, m, g_exp, raw, ok)
+
+
+def cull_limit(op):
+    """Per instance, the largest rho at which alpha = op * exp(-rho / 2)
+    can reach 1/255, 2 ln(255 op), widened by CULL_WIDEN and CULL_PAD; -1
+    where op < 1/255 (fillers included), which no rho reaches."""
+    lim = 2.0 * torch.log(255.0 * op) * CULL_WIDEN + CULL_PAD
+    return torch.where(op < ALPHA_MIN, -1.0, lim)
+
+
+def surfel_cull_plain(A, px, py):
+    """[T, PIX, CHUNK] bool, True where the forward kernel skips the pair:
+    pz = 0, or rho2d > lim and p0^2 + p1^2 > max(lim pz^2, CULL_FLOOR),
+    from the intersection p and rho2d as _surfel_alpha rounds them, in the
+    kernel's order. The widening dwarfs every rounding on the way, so a
+    skipped pair has alpha 0 (csrc/blend2d.cu says why)."""
+    def r(i):
+        return A[i][:, None, :]
+    px, py = px[..., None], py[..., None]
+    p0, p1, p2 = (r(A_CA + j) - px * r(A_CB + j) - py * r(A_CC + j)
+                  for j in range(3))
+    dx = r(A_XY) - px
+    dy = r(A_XY + 1) - py
+    rho2d = 2.0 * (dx * dx + dy * dy)
+    lim = cull_limit(A[A_OP])[:, None, :]
+    q = p0 * p0 + p1 * p1
+    # fmax, as the kernel's fmaxf, takes the floor where the product is NaN
+    bound = torch.fmax(lim * (p2 * p2), q.new_tensor(CULL_FLOOR))
+    return (p2 == 0.0) | ((rho2d > lim) & (q > bound))
 
 
 def _excl_cumsum(x):
@@ -321,18 +360,28 @@ def _check_inputs(attrs, ranges, tiles_x: int, tiles_y: int, *maps):
             raise ValueError("blend inputs must be contiguous, one device")
 
 
-def blend2d_fwd(attrs, ranges, tiles_x: int, tiles_y: int):
-    """Forward surfel blend -> [H, W, OUT2_ROWS]."""
+def _fwd(kernel: str, attrs, ranges, tiles_x: int, tiles_y: int):
     if attrs.device.type == "cpu":
         return blend2d_fwd_plain(attrs, ranges, tiles_x, tiles_y)
     _check_inputs(attrs, ranges, tiles_x, tiles_y)
     out = torch.empty((tiles_y * TILE, tiles_x * TILE, OUT2_ROWS),
                       dtype=torch.float32, device=attrs.device)
-    _kernels.launch("gssr_blend2d_fwd", attrs.device, _ptr(attrs),
+    _kernels.launch(f"gssr_{kernel}", attrs.device, _ptr(attrs),
                     ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
                     ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(out))
-    LAUNCHES["blend2d_fwd"] += 1
+    LAUNCHES[kernel] += 1
     return out
+
+
+def blend2d_fwd(attrs, ranges, tiles_x: int, tiles_y: int):
+    """Forward surfel blend -> [H, W, OUT2_ROWS]."""
+    return _fwd("blend2d_fwd", attrs, ranges, tiles_x, tiles_y)
+
+
+def blend2d_fwd_v1(attrs, ranges, tiles_x: int, tiles_y: int):
+    """The same through the first forward kernel, the yardstick of the
+    current one; no render calls it."""
+    return _fwd("blend2d_fwd_v1", attrs, ranges, tiles_x, tiles_y)
 
 
 def _bwd(kernel: str, attrs, ranges, fwd_out, cot, tiles_x: int,

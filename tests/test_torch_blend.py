@@ -139,7 +139,9 @@ def test_segment_sum_is_the_per_gaussian_sum():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
-    """CUDA kernels against their plain versions on the same inputs."""
+    """CUDA kernels against their plain versions on the same inputs; the
+    backward and its first design (blend_bwd_v1) also against each other,
+    bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
                     "at full size")
@@ -166,3 +168,5 @@ def test_kernels_match_plain_on_the_card():
     torch.testing.assert_close(d_k, d_p, atol=2e-4, rtol=2e-3)
     assert torch.equal(d_k, B.blend_bwd(attrs, tb.tile_ranges, out_k, cot,
                                         w // 16, h // 16))
+    assert torch.equal(d_k, B.blend_bwd_v1(attrs, tb.tile_ranges, out_k, cot,
+                                           w // 16, h // 16))

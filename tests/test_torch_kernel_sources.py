@@ -73,3 +73,37 @@ def test_launch_counters_name_entry_points(module):
     assert module.LAUNCHES
     for key in module.LAUNCHES:
         assert f"gssr_{key}" in defined, (key, sorted(defined))
+
+
+def _sass_text(name, ops):
+    """A kernel's `cuobjdump -sass` listing: one instruction per 16 bytes,
+    each with its encoding comment and a second encoding line."""
+    lines = [f"\t\tFunction : {name}", '\t.headerflags\t@"EF_CUDA_SM90"']
+    for i, op in enumerate(ops):
+        lines += [f"        /*{16 * i:04x}*/                   {op} ;"
+                  f"          /* 0x000fe40000000800 */",
+                  " " * 80 + "/* 0x000fe40000000f00 */"]
+    return "\n".join(lines) + "\n"
+
+
+def test_sass_count_finds_loops_and_kinds():
+    """sass_count.parse counts a kernel's instructions and its shared loads,
+    shuffles and MUFU operations (a predicate before an opcode included),
+    and reports a loop (from a backward branch's target to the branch)
+    only with at least MIN_LOOP instructions; a forward branch is none."""
+    from gssr_tpu_torch import sass_count
+    body = (["FADD R2, R2, R3"] * 14 + ["@!P1 LDS R4, [R5]",
+            "SHFL.BFLY PT, R6, R7, 0x1, 0x1f", "MUFU.EX2 R8, R9",
+            "@P0 BRA 0x20"])
+    short = ["IADD3 R1, R1, 0x1, RZ", "ISETP.NE.AND P0, PT, R1, R2, PT",
+             "@P0 BRA 0x140"]
+    looped = ["S2R R0, SR_TID.X", "@P2 BRA 0x170"] + body + short + ["EXIT"]
+    text = (_sass_text("k_loop", looped)
+            + _sass_text("k_flat", ["S2R R0, SR_TID.X", "EXIT"]))
+    found = sass_count.parse(text)
+    assert found == {
+        "k_loop": {"instructions": 24, "LDS": 1, "SHFL": 1, "MUFU": 1,
+                   "loops": [{"instructions": 18, "LDS": 1, "SHFL": 1,
+                              "MUFU": 1}]},
+        "k_flat": {"instructions": 2, "LDS": 0, "SHFL": 0, "MUFU": 0,
+                   "loops": []}}
