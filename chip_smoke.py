@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port, gssr_tpu_torch, on one CUDA card.
 
-    python3 chip_smoke.py [--profile FILE]
+    python3 chip_smoke.py [--profile FILE] [--yardstick DIR]
 
 Phases; any failure exits non-zero, and nothing is caught and passed over:
 
 1. build    one nvcc per source of gssr_tpu_torch/csrc/, all started
             together, for sm_90a; prints the build seconds, the registers
-            and spills, and the card; for the four redesigned kernels
-            (vanilla backward, surfel forward and backward, planar
-            backward) also their dynamic shared memory and resident blocks
-            per SM, which must be at least 3, 3, 2 and 3, with no spill.
+            and spills, and the card; for the six redesigned kernels
+            (vanilla forward and backward, surfel forward and backward,
+            planar forward and backward) also their dynamic shared memory
+            and resident blocks per SM, which must be at least 3, 3, 3, 2,
+            3 and 3, with no spill. With --yardstick DIR it also builds
+            DIR's kernels (DIR/gssr_tpu_torch/csrc/, a checkout of the
+            parent commit) into build/yardstick/.
             (`python -m gssr_tpu_torch.sass_count` prints the kernels'
             SASS instruction counts.)
 2. kernels  each blend kernel against its plain PyTorch version on the
@@ -25,7 +28,8 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             kernel's counts. The first designs of the four redesigned
             kernels (the *_v1 kernels, their yardstick) pass the same checks
             and must equal the current ones bit for bit; each pair is timed
-            in turns.
+            in turns. With --yardstick, the vanilla and planar forwards
+            must equal DIR's bit for bit.
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
@@ -55,11 +59,16 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             unit size; with times and bounds, the four redesigned kernels
             timed in turns with their v1 kernels (plain, v1, new, new, v1;
             "v1_ms" in their rows) after asserting that each equals its v1
-            bit for bit. At the 2dgs inputs it also prints, from the plain
-            version of the surfel forward's cull, the share of evaluated
-            pairs the cull skips, on which the surfel kernels' bounds count
-            only the cull's test, and the share of (warp, instance) steps
-            in which every walking lane of a warp's 8 x 4 block skips.
+            bit for bit. At the 3dgs, 2dgs and pgsr inputs it also prints,
+            from the plain versions of the forwards' culls, the share of
+            evaluated pairs the per-pair test proves zero and the share of
+            (warp, instance) steps that a warp's 8 x 4 block skips whole
+            (the vanilla and planar forwards' instance lists; for the
+            surfels, where every walking lane skips), from which the
+            kernels' bounds charge such pairs only the test that proves
+            them zero. With --yardstick, the vanilla and planar
+            forwards must equal DIR's bit for bit, are timed in turns with
+            them (DIR, new, new, DIR) and their rows gain "parent_ms".
             Prints the
             {"kernels": [...]} line, the card, and last the {"ok": true,
             "device": {...}} line.
@@ -67,6 +76,10 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
 --profile FILE adds three profiled train steps to each path after phase 3
 and writes torch.profiler's per-kernel tables to FILE (3dgs) and to FILE
 with `_2dgs` and `_pgsr` before its suffix.
+
+--yardstick DIR names a checkout of the parent commit (for example `git
+archive HEAD` unpacked under build/): its vanilla and planar forward
+kernels are the yardstick the redesigned ones are held and timed against.
 """
 from __future__ import annotations
 
@@ -80,6 +93,7 @@ import sys
 import tempfile
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -111,6 +125,18 @@ FWDP_OPS_PER_CONTRIB = 16
 OBSP_OPS_PER_PAIR = 23
 BWDP_OPS_PER_PAIR = 22
 BWDP_OPS_PER_CONTRIB = 69
+# the least work of a vanilla or planar pair whose alpha the forwards' cull
+# (gssr_tpu_torch/csrc/common.cuh) proves 0, which all five vanilla and
+# planar kernels then need no more for: per (warp, instance) step that the
+# warp test skips whole, block_culled once for all its pairs (the block's
+# far corner 2; four edge minima, each a clamped point 5 and Q 10 with the
+# corner's offset shared; their minimum 3; the inside test and select 5; X
+# and Y 2; Emax 9; the margin and the two compares 4); per pair of a walked
+# step that the per-pair proof covers, the power, 11, and its test against
+# the instance's limit, 1. The limit itself, once per (tile, instance), is
+# left out.
+GAUSS_OPS_PER_BLOCK_TEST = 85
+GAUSS_OPS_PER_CULLED = 12
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-4)
 BWD_TOL = dict(atol=2e-4, rtol=2e-3)
@@ -141,10 +167,16 @@ V1_KERNELS = ("blend_bwd_v1", "blend2d_fwd_v1", "blend2d_bwd_v1",
               "blend_pgsr_bwd_v1")
 # the redesigned kernels' occupancy entry points and the resident blocks per
 # SM each must keep
-OCCUPANCY = {"gssr_blend_bwd_occupancy": 3,
+OCCUPANCY = {"gssr_blend_fwd_occupancy": 3,
+             "gssr_blend_bwd_occupancy": 3,
              "gssr_blend2d_fwd_occupancy": 3,
              "gssr_blend2d_bwd_occupancy": 2,
+             "gssr_blend_pgsr_fwd_occupancy": 3,
              "gssr_blend_pgsr_bwd_occupancy": 3}
+# the forwards --yardstick holds against the parent commit's: wrapper ->
+# (C entry point, output channels per pixel)
+YARDSTICK = {"blend_fwd": ("gssr_blend_fwd", 4),
+             "blend_pgsr_fwd": ("gssr_blend_pgsr_fwd", 8)}
 # each path's options beyond the common ones
 METHOD_ARGS = {"pgsr": ["--scene.multi-view-from", str(MULTI_VIEW_FROM)]}
 
@@ -178,8 +210,9 @@ def median_ms(fn, reps: int) -> float:
 
 
 def turns_ms(v1, new, reps: int = 20):
-    """A v1 kernel and its redesign timed in turns v1, new, new, v1:
-    (v1 ms, new ms), each the median of its two turns' samples."""
+    """A yardstick kernel (v1, or the parent commit's) and its redesign
+    timed in turns v1, new, new, v1: (v1 ms, new ms), each the median of
+    its two turns' samples."""
     times = {v1: [], new: []}
     for fn in (v1, new, new, v1):
         times[fn] += event_ms(fn, reps)
@@ -276,30 +309,94 @@ def per_gaussian(slot_values, b):
 # 1. build
 # ---------------------------------------------------------------------------
 
-def phase_build(dev):
+def phase_build(dev, yardstick=None):
+    """Build and load the kernels; with `yardstick` (a checkout of the
+    parent commit) also build its kernels into build/yardstick/. Returns
+    {wrapper name: the parent's forward} for YARDSTICK's forwards, or
+    None."""
     from gssr_tpu_torch.ops import _kernels
-    info = _kernels.build()
+    builds = [("", _kernels.build())]
     _kernels.load()
-    print(f"[build] {len(info['libs'])} libraries in {info['seconds']:.2f} s "
-          f"(one nvcc per source, in parallel)")
-    for src, lib in info["libs"].items():
-        print(f"[build] {src} -> {lib['path'].name} in {lib['seconds']:.2f} s")
-        for line in lib["log"].splitlines():
-            if ("registers" in line or "spill" in line or "error" in line
-                    or "Compiling entry" in line):
-                print(f"[build] {line.strip()}")
+    parent = None
+    if yardstick:
+        info = _kernels.build(
+            Path(yardstick) / "gssr_tpu_torch" / "csrc",
+            _kernels.BUILD_DIR.parent / "yardstick")
+        builds.append(("yardstick ", info))
+        parent = {name: partial(parent_fwd, bind_parent(info["libs"], entry),
+                                rows)
+                  for name, (entry, rows) in YARDSTICK.items()}
+    for tag, info in builds:
+        print(f"[build] {tag}{len(info['libs'])} libraries in "
+              f"{info['seconds']:.2f} s (one nvcc per source, in parallel)")
+        log_build(tag, info)
     for name, least in OCCUPANCY.items():
         occ = _kernels.occupancy(name, dev)
         print(f"[build] {name}: {occ}")
         assert occ["blocks_per_sm"] >= least, (name, occ)
         assert occ["local_bytes"] == 0, (name, occ)
+    return parent
+
+
+def log_build(tag, info):
+    for src, lib in info["libs"].items():
+        print(f"[build] {tag}{src} -> {lib['path'].name} in "
+              f"{lib['seconds']:.2f} s")
+        for line in lib["log"].splitlines():
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "Compiling entry" in line):
+                print(f"[build] {tag}{line.strip()}")
+
+
+def bind_parent(libs, entry):
+    """The parent commit's forward `entry` from its built libraries `libs`
+    (build()["libs"]), bound through ctypes: (C function, error string)."""
+    import ctypes
+
+    from gssr_tpu_torch.ops import _kernels
+    src = next(s for s, entries in _kernels.SOURCES.items()
+               if entry in entries)
+    lib = ctypes.CDLL(str(libs[src]["path"]))
+    lib.gssr_error_string.argtypes = [ctypes.c_int]
+    lib.gssr_error_string.restype = ctypes.c_char_p
+    fn = getattr(lib, entry)
+    fn.argtypes = [*_kernels.SOURCES[src][entry], ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, lib.gssr_error_string
+
+
+def parent_fwd(bound, rows, attrs, ranges, tiles_x, tiles_y):
+    """The parent commit's forward (bind_parent's `bound`) on these inputs
+    -> [H, W, rows]; called here, so no LAUNCHES count moves."""
+    import ctypes
+
+    from gssr_tpu_torch.ops.blend import _ptr
+    fn, error_string = bound
+    out = torch.empty((tiles_y * 16, tiles_x * 16, rows),
+                      dtype=torch.float32, device=attrs.device)
+    stream = torch.cuda.current_stream(attrs.device).cuda_stream
+    err = fn(_ptr(attrs), ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
+             ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(out),
+             ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"the parent's forward: "
+                           f"{error_string(err).decode()}")
+    return out
+
+
+def assert_parent_equal(parent, name, out, *inputs):
+    """With --yardstick, the forward `name`'s maps `out` must equal the
+    parent commit's on the same inputs, bit for bit."""
+    if parent is not None:
+        assert torch.equal(out, parent[name](*inputs)), \
+            f"{name} differs from the parent commit's kernel"
 
 
 # ---------------------------------------------------------------------------
 # 2. kernels against their plain versions, with an overdraw tile
 # ---------------------------------------------------------------------------
 
-def phase_kernels(dev):
+def phase_kernels(dev, parent=None):
     from gssr_tpu_torch.ops import blend as B
     g = torch.Generator(device="cpu").manual_seed(1)
     n = 20_000
@@ -310,6 +407,7 @@ def phase_kernels(dev):
     out_k = B.blend_fwd(attrs, ranges, tx, ty)
     out_p = B.blend_fwd_plain(attrs, ranges, tx, ty)
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    assert_parent_equal(parent, "blend_fwd", out_k, attrs, ranges, tx, ty)
     saturated = int((out_k[..., 3] < 1e-3).sum())
     assert saturated > 0, "the overdraw tile did not saturate"
     cot = torch.randn(out_k.shape, generator=g).to(dev)
@@ -328,7 +426,8 @@ def phase_kernels(dev):
     print(f"[kernels] 256x256, {n} gaussians, {attrs.shape[1]} instance "
           f"slots, {saturated} saturated pixels")
     print(f"[kernels] blend_fwd max|err| {max_err(out_k, out_p):.3e}  "
-          f"{fwd_ms:.4f} ms  plain {fwd_plain_ms:.4f} ms")
+          f"{fwd_ms:.4f} ms  plain {fwd_plain_ms:.4f} ms"
+          + ("; bitwise equal to the parent's" if parent else ""))
     print(f"[kernels] blend_bwd max|err| {max_err(d_k, d_p):.3e}  "
           f"{bwd_ms:.4f} ms  v1 {v1_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  "
           f"deterministic: yes; bitwise equal to v1: yes")
@@ -397,7 +496,7 @@ def phase_kernels2d(dev):
           f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: yes")
 
 
-def phase_kernels_pgsr(dev):
+def phase_kernels_pgsr(dev, parent=None):
     """The three planar kernels against their plain versions at 256x256
     with ~20k gaussians carrying random camera-space normals and plane
     distances, and a dense overdraw stack: the early stop and the T > 0.5
@@ -421,6 +520,8 @@ def phase_kernels_pgsr(dev):
     out_k = B.blend_pgsr_fwd(attrs, ranges, tx, ty)
     out_p = B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty)
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    assert_parent_equal(parent, "blend_pgsr_fwd", out_k, attrs, ranges, tx,
+                        ty)
     saturated = int((out_k[..., B.PO_T] < 1e-3).sum())
     assert saturated > 0, "the overdraw stack did not saturate"
     obs_k = B.blend_pgsr_observe(attrs, ranges, tx, ty)
@@ -450,7 +551,8 @@ def phase_kernels_pgsr(dev):
           f"instance slots, {saturated} saturated pixels; {contrib} "
           f"contributing pairs, {observed} of them observed (D > 0.5)")
     print(f"[kernels pgsr] blend_pgsr_fwd max|err| "
-          f"{max_err(out_k, out_p):.3e}  {fwd_ms:.4f} ms")
+          f"{max_err(out_k, out_p):.3e}  {fwd_ms:.4f} ms"
+          + ("; bitwise equal to the parent's" if parent else ""))
     print(f"[kernels pgsr] blend_pgsr_obs exact  {obs_ms:.4f} ms")
     print(f"[kernels pgsr] blend_pgsr_bwd max|err| {max_err(d_k, d_p):.3e}  "
           f"{bwd_ms:.4f} ms  v1 max|err| {max_err(d_v1, d_p):.3e}  "
@@ -754,52 +856,109 @@ def bound(ops, nbytes):
 
 
 @torch.no_grad()
-def surfel_cull_counts(attrs, ranges, tiles_x, tiles_y):
-    """What the surfel forward's cull skips on these inputs, from its plain
-    version: (evaluated pairs, as blend2d_pair_count counts them; those the
-    cull skips; (warp, instance) steps in which some lane of a warp's 8 x 4
-    pixel block evaluates the pair; those in which every such lane skips
-    it). A lane's skip saves issue slots only in such a whole step."""
-    from gssr_tpu_torch.ops import blend2d as B
-    from gssr_tpu_torch.ops.blend import T_EPS, _chunks, _pixel_coords, _walk
+def cull_counts(attrs, ranges, tiles_x, tiles_y, alpha, pair_cull,
+                warp_cull=None):
+    """What a forward's cull skips on these inputs, from its plain version
+    (alpha, pair_cull and warp_cull map a chunk and the pixel centres to
+    [T, PIX, CHUNK] alpha and culled pairs, and [T, WARPS, CHUNK] culled
+    warp steps). Returns a namespace: pairs, the evaluated pairs as the
+    pair counts count them; culled, those the per-pair test proves zero;
+    steps, the (warp, instance) steps in which some lane of a warp's 8 x 4
+    pixel block evaluates the pair; whole, those the warp skips whole
+    (where warp_cull says so, or without it where every such lane's pair
+    is culled); in_whole, the pairs inside them; proof, the culled pairs
+    inside the other steps. A lane's skip saves issue slots only in a
+    whole step."""
+    from types import SimpleNamespace
+
+    from gssr_tpu_torch.ops.blend import (
+        T_EPS,
+        _chunks,
+        _pixel_coords,
+        _walk,
+        warp_blocks,
+    )
+    from gssr_tpu_torch.ops.blend2d import _tile_batches
     px, py = _pixel_coords(tiles_x, tiles_y, attrs.device)
-    attrs = attrs[:B.LIVE_ATTRS2]
-
-    def warps(x):     # [T, 256, C] row-major in its tile -> [T, 8, 32, C]
-        t, c = x.shape[0], x.shape[-1]
-        x = x.reshape(t, 4, 4, 2, 8, c).permute(0, 1, 3, 2, 4, 5)
-        return x.reshape(t, 8, 32, c)
-
-    pairs = culled = steps = whole = 0
-    for t0, t1 in B._tile_batches(tiles_x * tiles_y):
+    c = SimpleNamespace(pairs=0, culled=0, steps=0, whole=0, in_whole=0,
+                        proof=0)
+    for t0, t1 in _tile_batches(tiles_x * tiles_y):
         x, y = px[t0:t1], py[t0:t1]
         D = torch.ones_like(x)
         for A, _, live in _chunks(attrs, ranges[t0:t1 + 1]):
-            _, d_before, _, _, D = _walk(B._surfel_alpha(A, x, y).a, D)
+            _, d_before, _, _, D = _walk(alpha(A, x, y), D)
             walked = (d_before >= T_EPS) & live[:, None, None]
-            exact = walked & ~B.surfel_cull_plain(A, x, y)
-            pairs += int(walked.sum())
-            culled += int(walked.sum() - exact.sum())
-            step = warps(walked).any(2)
-            steps += int(step.sum())
-            whole += int((step & ~warps(exact).any(2)).sum())
-    return pairs, culled, steps, whole
+            culled = walked & pair_cull(A, x, y)
+            lanes = warp_blocks(walked)
+            step = lanes.any(2)
+            skip = (warp_cull(A, x, y) if warp_cull is not None
+                    else ~warp_blocks(walked & ~culled).any(2))
+            whole = (step & skip)[:, :, None, :]
+            c.pairs += int(walked.sum())
+            c.culled += int(culled.sum())
+            c.steps += int(step.sum())
+            c.whole += int(whole.sum())
+            c.in_whole += int((lanes & whole).sum())
+            c.proof += int((warp_blocks(culled) & ~whole).sum())
+    return c
+
+
+def surfel_cull_counts(attrs, ranges, tiles_x, tiles_y):
+    """cull_counts of the surfel forward's cull."""
+    from gssr_tpu_torch.ops import blend2d as B
+    return cull_counts(attrs[:B.LIVE_ATTRS2], ranges, tiles_x, tiles_y,
+                       lambda A, x, y: B._surfel_alpha(A, x, y).a,
+                       B.surfel_cull_plain)
+
+
+def gauss_cull_counts(attrs, ranges, tiles_x, tiles_y):
+    """cull_counts of the vanilla and planar forwards' cull, whose warps
+    walk only the instances warp_cull_plain leaves in (alpha_cull_plain,
+    the per-pair proof under it, no kernel runs); rows 0-5, which the two
+    layouts share."""
+    from gssr_tpu_torch.ops import blend as B
+    return cull_counts(attrs[:B.ATTR_R], ranges, tiles_x, tiles_y,
+                       lambda A, x, y: B._chunk_alpha(A, x, y)[0],
+                       B.alpha_cull_plain, B.warp_cull_plain)
+
+
+def gauss_pair_ops(per_pair, c):
+    """The operations a vanilla or planar kernel needs at least for the
+    evaluated pairs of cull counts c: a (warp, instance) step that the warp
+    test skips whole costs that test once, for all of its pairs; a pair of
+    a walked step that the per-pair proof covers costs the proof; every
+    other pair costs per_pair."""
+    return (per_pair * (c.pairs - c.in_whole - c.proof)
+            + GAUSS_OPS_PER_CULLED * c.proof
+            + GAUSS_OPS_PER_BLOCK_TEST * c.whole)
+
+
+def print_cull_shares(tag, c):
+    print(f"{tag} forward's cull (its plain version): the per-pair test "
+          f"proves {c.culled} of {c.pairs} evaluated pairs zero "
+          f"({100 * c.culled / c.pairs:.2f} %); an 8 x 4 warp skips "
+          f"{c.whole} of {c.steps} (warp, instance) steps whole "
+          f"({100 * c.whole / c.steps:.2f} %), which hold {c.in_whole} pairs "
+          f"({100 * c.in_whole / c.pairs:.2f} %); the walked steps hold "
+          f"{c.proof} proved pairs")
 
 
 def report_row(name, source, replaces, launches, err, fn, plain, ops,
-               nbytes, v1=None):
+               nbytes, v1=None, parent=None):
     """The kernel's row of the {"kernels": [...]} line. With its v1 kernel
-    `v1`, the two are timed in turns after the plain version (plain, v1,
-    new, new, v1) and the row gains "v1_ms"."""
+    `v1`, or the parent commit's kernel `parent`, the two are timed in
+    turns after the plain version (plain, v1, new, new, v1) and the row
+    gains "v1_ms" or "parent_ms"."""
     bound_ms, bound_by = bound(ops, nbytes)
     plain_ms = median_ms(plain, 3)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err}
-    if v1 is None:
+    base = v1 if v1 is not None else parent
+    if base is None:
         row["ms"] = median_ms(fn, 20)
     else:
-        v1_ms, row["ms"] = turns_ms(v1, fn)
-        row["v1_ms"] = v1_ms
+        base_ms, row["ms"] = turns_ms(base, fn)
+        row["v1_ms" if v1 is not None else "parent_ms"] = base_ms
     row.update(plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=None)
     return row
@@ -853,7 +1012,7 @@ def assert_forward_pair(out_k, out_v1, out_p, sel):
     assert torch.equal(out_k, out_v1), "a forward differs from its v1 kernel"
 
 
-def phase_report(trainer, launches, dev):
+def phase_report(trainer, launches, dev, parent=None):
     from types import SimpleNamespace
 
     from gssr_tpu_torch.ops import blend as B
@@ -871,6 +1030,7 @@ def phase_report(trainer, launches, dev):
     out_k = B.blend_fwd(attrs, ranges, tx, ty)
     out_p = B.blend_fwd_plain(attrs, ranges, tx, ty)
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    assert_parent_equal(parent, "blend_fwd", out_k, attrs, ranges, tx, ty)
     # the cotangent of the training loss itself, scaled to unit size: the
     # loss is a mean over every pixel channel, so its raw cotangent (~1e-7)
     # would leave every gradient far below the absolute tolerance
@@ -890,21 +1050,27 @@ def phase_report(trainer, launches, dev):
                          bwd, bwd_v1)
 
     pairs, _ = B.blend_pair_count(attrs, ranges, tx, ty)
+    cull = gauss_cull_counts(attrs, ranges, tx, ty)
+    assert cull.pairs == pairs, (cull.pairs, pairs)
+    print_cull_shares("[report 3dgs]", cull)
     n_inst = attrs.shape[1]
     hw = out_k.shape[0] * out_k.shape[1]
     live_bytes = B.LIVE_ATTRS * n_inst * 4 + ranges.numel() * 4
     src = "gssr_tpu_torch/csrc/blend.cu"
+    fwd = partial(B.blend_fwd, attrs, ranges, tx, ty)
     rows = [
         report_row("blend_fwd", src, "gssr_tpu/ops/blend_pallas.py:158",
-                   launches["blend_fwd"], max_err(out_k, out_p),
-                   lambda: B.blend_fwd(attrs, ranges, tx, ty),
+                   launches["blend_fwd"], max_err(out_k, out_p), fwd,
                    lambda: B.blend_fwd_plain(attrs, ranges, tx, ty),
-                   FWD_OPS_PER_PAIR * pairs, live_bytes + hw * 16),
+                   gauss_pair_ops(FWD_OPS_PER_PAIR, cull),
+                   live_bytes + hw * 16,
+                   parent=parent and partial(parent["blend_fwd"], attrs,
+                                             ranges, tx, ty)),
         report_row("blend_bwd", src, "gssr_tpu/ops/blend_pallas.py:265",
                    launches["blend_bwd"], max_err(d_k, d_p), bwd,
                    lambda: B.blend_bwd_plain(attrs, ranges, out_k, cot, tx,
                                              ty),
-                   BWD_OPS_PER_PAIR * pairs,
+                   gauss_pair_ops(BWD_OPS_PER_PAIR, cull),
                    live_bytes + 2 * hw * 16 + attrs.numel() * 4, v1=bwd_v1)]
     print(f"[report 3dgs] blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs "
@@ -980,15 +1146,12 @@ def phase_report2d(trainer, launches, dev):
           f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: yes")
 
     pairs, contrib = B.blend2d_pair_count(attrs, ranges, tx, ty)
-    walked, culled, steps, whole = surfel_cull_counts(attrs, ranges, tx, ty)
-    assert walked == pairs, (walked, pairs)
-    print(f"[report 2dgs] surfel forward cull (its plain version): skips "
-          f"{culled} of {pairs} evaluated pairs ({100 * culled / pairs:.2f} "
-          f"%); every walking lane of an 8 x 4 warp skips in {whole} of "
-          f"{steps} (warp, instance) steps ({100 * whole / steps:.2f} %)")
+    cull = surfel_cull_counts(attrs, ranges, tx, ty)
+    assert cull.pairs == pairs, (cull.pairs, pairs)
+    print_cull_shares("[report 2dgs] surfel", cull)
     # both surfel kernels need the cull's test alone on the culled pairs
-    pair_ops = (SURFEL_OPS_PER_PAIR * (pairs - culled)
-                + SURFEL_OPS_PER_CULLED * culled)
+    pair_ops = (SURFEL_OPS_PER_PAIR * (pairs - cull.culled)
+                + SURFEL_OPS_PER_CULLED * cull.culled)
     n_inst = attrs.shape[1]
     hw = out_k.shape[0] * out_k.shape[1]
     live_bytes = B.LIVE_ATTRS2 * n_inst * 4 + ranges.numel() * 4
@@ -1014,7 +1177,7 @@ def phase_report2d(trainer, launches, dev):
     return rows
 
 
-def phase_report_pgsr(trainer, launches, dev):
+def phase_report_pgsr(trainer, launches, dev, parent=None):
     """The three planar kernels against their plain versions at the pgsr
     path's own inputs (the trained model, camera 0), under the cotangent
     of the pgsr multi-view loss at the end of training through the
@@ -1048,6 +1211,8 @@ def phase_report_pgsr(trainer, launches, dev):
     out_k = B.blend_pgsr_fwd(attrs, ranges, tx, ty)
     out_p = B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty)
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    assert_parent_equal(parent, "blend_pgsr_fwd", out_k, attrs, ranges, tx,
+                        ty)
     obs_k = B.blend_pgsr_observe(attrs, ranges, tx, ty)
     obs_p = B.blend_pgsr_obs_plain(attrs, ranges, tx, ty)
     assert torch.equal(obs_k, obs_p)
@@ -1103,6 +1268,9 @@ def phase_report_pgsr(trainer, launches, dev):
           f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: yes")
 
     pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
+    cull = gauss_cull_counts(attrs, ranges, tx, ty)
+    assert cull.pairs == pairs, (cull.pairs, pairs)
+    print_cull_shares("[report pgsr] planar", cull)
     n_inst = attrs.shape[1]
     hw = out_k.shape[0] * out_k.shape[1]
     range_bytes = ranges.numel() * 4
@@ -1113,21 +1281,25 @@ def phase_report_pgsr(trainer, launches, dev):
     rows = [
         report_row("blend_pgsr_fwd", src, f"{pallas}:83",
                    launches["blend_pgsr_fwd"], max_err(out_k, out_p),
-                   lambda: B.blend_pgsr_fwd(attrs, ranges, tx, ty),
+                   partial(B.blend_pgsr_fwd, attrs, ranges, tx, ty),
                    lambda: B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty),
-                   FWDP_OPS_PER_PAIR * pairs + FWDP_OPS_PER_CONTRIB * contrib,
-                   live_bytes + map_bytes),
+                   gauss_pair_ops(FWDP_OPS_PER_PAIR, cull)
+                   + FWDP_OPS_PER_CONTRIB * contrib,
+                   live_bytes + map_bytes,
+                   parent=parent and partial(parent["blend_pgsr_fwd"],
+                                             attrs, ranges, tx, ty)),
         report_row("blend_pgsr_obs", src, f"{pallas}:182",
                    launches["blend_pgsr_obs"], max_err(obs_k, obs_p),
                    lambda: B.blend_pgsr_observe(attrs, ranges, tx, ty),
                    lambda: B.blend_pgsr_obs_plain(attrs, ranges, tx, ty),
-                   OBSP_OPS_PER_PAIR * pairs,
+                   gauss_pair_ops(OBSP_OPS_PER_PAIR, cull),
                    B.P_RGB * n_inst * 4 + range_bytes + n_inst * 4),
         report_row("blend_pgsr_bwd", src, f"{pallas}:216",
                    launches["blend_pgsr_bwd"], max_err(d_k, d_p), bwd,
                    lambda: B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot,
                                                   tx, ty),
-                   BWDP_OPS_PER_PAIR * pairs + BWDP_OPS_PER_CONTRIB * contrib,
+                   gauss_pair_ops(BWDP_OPS_PER_PAIR, cull)
+                   + BWDP_OPS_PER_CONTRIB * contrib,
                    live_bytes + 2 * map_bytes + attrs.numel() * 4,
                    v1=bwd_v1)]
     print(f"[report pgsr] planar blend inputs: {tx * 16}x{ty * 16} padded, "
@@ -1140,6 +1312,10 @@ def phase_report_pgsr(trainer, launches, dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None)
+    ap.add_argument("--yardstick", default=None, metavar="DIR",
+                    help="a checkout of the parent commit whose vanilla and "
+                         "planar forwards the current ones must equal bit "
+                         "for bit and are timed against")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1152,10 +1328,10 @@ def main(argv=None) -> int:
     print(f"[card] {card_line}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    phase_build(dev)
-    phase_kernels(dev)
+    parent = phase_build(dev, args.yardstick)
+    phase_kernels(dev, parent)
     phase_kernels2d(dev)
-    phase_kernels_pgsr(dev)
+    phase_kernels_pgsr(dev, parent)
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_scene(os.path.join(root, "scene"), dev)
@@ -1170,9 +1346,9 @@ def main(argv=None) -> int:
             phase_profile(trainer3, args.profile, card_line)
             phase_profile(trainer2, f"{stem}_2dgs{ext}", card_line)
             phase_profile(trainerp, f"{stem}_pgsr{ext}", card_line)
-        rows = phase_report(trainer3, launches3, dev)
+        rows = phase_report(trainer3, launches3, dev, parent)
         rows += phase_report2d(trainer2, launches2, dev)
-        rows += phase_report_pgsr(trainerp, launchesp, dev)
+        rows += phase_report_pgsr(trainerp, launchesp, dev, parent)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

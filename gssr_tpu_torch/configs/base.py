@@ -4,6 +4,11 @@ Same shape and output-dir layout as the reference. Configs serialize as
 plain YAML data (dict tree + class names) and are rebuilt through the
 class registry of configs/methods.py. The multi-device fields wait for
 the scale-out slice; `machine.device` picks the torch device.
+
+`load_config_yaml` also reads a config.yml that gssr_tpu wrote. The
+fields the port has no counterpart for (FOREIGN_FIELDS) are dropped with
+one printed note each, and a value of one that would change what the
+port computes (several devices or hosts) raises, naming the field.
 """
 from __future__ import annotations
 
@@ -121,16 +126,62 @@ def save_config_yaml(config: Config, path):
         yaml.safe_dump(_to_plain(config), f, sort_keys=False)
 
 
+# Fields of gssr_tpu's config classes that the port has no counterpart
+# for: class name -> {field: the values under which the port computes what
+# gssr_tpu computes, or None where no value changes it}. The partitioner
+# and retrain (the split entries), the TensorBoard writer and log dir, the
+# profiler window, scan_block (K steps per XLA dispatch, the same steps)
+# and the scene's instance_cap (the port sizes the instance buffer exactly
+# per render) and blend backend (both compute the same blend) change no
+# result of a single-device run.
+_SCENE_FIELDS = {"instance_cap": None, "backend": ("pallas", "reference")}
+FOREIGN_FIELDS = {
+    "Config": {"retrain": None, "partitioner": None, "writer": None,
+               "relative_log_dir": None},
+    "MachineConfig": {"num_hosts": (1,), "host_rank": (0,),
+                      "parallel": ("none",), "num_devices": (0, 1),
+                      "dist_init": (False,)},
+    "TrainerConfig": {"profile_dir": None, "profile_steps": None,
+                      "scan_block": None},
+    "VanillaSceneConfig": _SCENE_FIELDS,
+    "TwoDGSSceneConfig": _SCENE_FIELDS,
+    "PGSRSceneConfig": _SCENE_FIELDS,
+}
+
+
+def _drop_foreign(name: str, node: dict) -> dict:
+    """The fields of a `name` node that the port's class takes: each field
+    of FOREIGN_FIELDS[name] is dropped with a printed note, or raises
+    where its value would change what the port computes."""
+    kept = {}
+    for k, v in node.items():
+        allowed = FOREIGN_FIELDS.get(name, {}).get(k, ...)
+        if allowed is ...:
+            kept[k] = v
+            continue
+        if allowed is not None and v not in allowed:
+            raise ValueError(
+                f"config field {name}.{k} = {v!r} is not supported by "
+                f"gssr_tpu_torch (single device only; it takes "
+                f"{', '.join(map(repr, allowed))})")
+        print(f"config: dropped gssr_tpu field {name}.{k} "
+              f"(no counterpart in gssr_tpu_torch)")
+    return kept
+
+
 def load_config_yaml(path) -> Config:
-    """Rebuild the typed config tree from plain YAML via the registry."""
+    """Rebuild the typed config tree from plain YAML via the registry; a
+    config.yml of gssr_tpu loses its FOREIGN_FIELDS on the way."""
     from gssr_tpu_torch.configs.methods import config_classes
     classes = config_classes()
 
     def rebuild(node):
         if isinstance(node, dict) and "__dataclass__" in node:
-            cls = classes[node["__dataclass__"]]
-            return cls(**{k: rebuild(v) for k, v in node.items()
-                          if k != "__dataclass__"})
+            name = node["__dataclass__"]
+            fields = _drop_foreign(name, {k: v for k, v in node.items()
+                                          if k != "__dataclass__"})
+            return classes[name](**{k: rebuild(v)
+                                    for k, v in fields.items()})
         if isinstance(node, list):
             return [rebuild(v) for v in node]
         return node

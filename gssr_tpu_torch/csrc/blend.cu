@@ -16,14 +16,33 @@
 // image.
 //
 // What bounds them on the H100: per (pixel, instance) pair up to the
-// tile's saturation the forward does one expf and ~20 FP32 operations;
-// the backward redoes that and adds ~25 operations of gradient terms and
-// the sum of 9 rows over the tile's pixels. Attribute bytes (36 per
+// tile's saturation the forward does one expf and ~20 FP32 operations
+// (where the cull proves alpha 0, the least work is its test: the warp
+// test, 85, once per warp step it skips whole, else the power and its
+// test, 12); the backward redoes that and adds ~25 operations of gradient
+// terms and the sum of 9 rows over the tile's pixels. Attribute bytes (36 per
 // instance, read once per tile) are small beside that, so both are bound
 // by FP32/MUFU work and instruction issue, not by memory. The design keeps
 // each chunk's 9 attribute rows (4.5 KB) in shared memory, read by all 256
 // pixels of the tile, stops a tile's walk once no pixel has T >= 1e-4, and
 // skips a warp's reduction where no lane touches the instances it sums.
+//
+// The forward: its first design (a thread per pixel, every walked pair's
+// alpha from chunk_alpha) issued ~45 instructions per (pixel, instance)
+// pair, and most pairs change nothing: the tile mask admits a gaussian to
+// a whole tile where its alpha >= 1/255 ellipse touches the tile, and
+// chunk-aligned ranges pad every tile's list with filler columns (opacity
+// 0). So it was bound by instruction issue on pairs whose alpha is 0.
+// blend_fwd_kernel runs common.cuh::gauss_fwd_tile: a conservative cull
+// proves alpha = 0 for a warp's whole 8 x 4 pixel block, so the warp walks
+// only the instances some pixel of its block may see (from 4 ballots a
+// chunk), and each chunk is staged as float4 (geometry and cull inputs,
+// two broadcast loads a step; the colour, one). Every skipped pair has
+// alpha 0, so the outputs are those of the walk over every instance, bit
+// for bit. At chip_smoke.py's 3dgs inputs (32 steps of its random
+// synthetic scene, camera 0, an H100) the warps skip 47 % of their
+// (warp, instance) steps, and a walked step issues about what one of the
+// first design did: the skipped steps are the gain.
 //
 // The backward's sum over pixels: an xor butterfly per row takes 5
 // shuffles and 5 adds a row and lane, 45 shuffles, 45 adds and 9 stores by
@@ -65,42 +84,13 @@ enum { CR = GEOM_ROWS, CG, CB };
 // instances whose 27 gradient rows blend_bwd_kernel sums in one 32-vector
 constexpr int GROUP = 3;
 
-__global__ void __launch_bounds__(PIX)
+// the forward with its alpha cull (common.cuh::gauss_fwd_tile): rgb and
+// final_T per pixel
+__global__ void __launch_bounds__(PIX, 3)
 blend_fwd_kernel(const float* __restrict__ attrs, long long n_inst,
                  const int* __restrict__ ranges, int tiles_x,
                  float* __restrict__ out) {
-  __shared__ float s[LIVE][CHUNK];
-  const int t = blockIdx.x, p = threadIdx.x;
-  const int gx = (t % tiles_x) * TILE + p % TILE;
-  const int gy = (t / tiles_x) * TILE + p / TILE;
-  const float px = (float)gx, py = (float)gy;
-  const long long end = ranges[t + 1];
-  float D = 1.f, Tb = 1.f, r = 0.f, g = 0.f, b = 0.f;
-
-  for (long long base = ranges[t]; base < end; base += CHUNK) {
-    // also the barrier before the staging buffer is overwritten
-    if (!__syncthreads_or(D >= T_EPS)) break;
-    load_chunk<LIVE>(s, attrs, n_inst, base);
-    __syncthreads();
-    for (int i = 0; i < CHUNK && D >= T_EPS; ++i) {
-      const Alpha al = chunk_alpha(s, i, px, py);
-      if (al.a > 0.f) {
-        const float one_m = 1.f - al.a;
-        const float Dn = D * one_m;
-        if (Dn >= T_EPS) {
-          const float w = al.a * D;
-          r += w * s[CR][i];
-          g += w * s[CG][i];
-          b += w * s[CB][i];
-          Tb *= one_m;
-        }
-        D = Dn;
-      }
-    }
-  }
-  const int width = tiles_x * TILE;
-  reinterpret_cast<float4*>(out)[(long long)gy * width + gx] =
-      make_float4(r, g, b, Tb);
+  gauss_fwd_tile<3>(attrs, n_inst, ranges, tiles_x, out);
 }
 
 // One pixel's side of the vanilla backward: its cotangent, the totals a
@@ -287,6 +277,12 @@ int gssr_blend_bwd_v1(const float* attrs, long long n_inst, const int* ranges,
                         static_cast<cudaStream_t>(stream)>>>(
       attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: blend_fwd_kernel's registers, local bytes, dynamic shared bytes
+// (none: its shared memory is static) and resident blocks per SM
+int gssr_blend_fwd_occupancy(int* out, void* stream) {
+  return static_cast<int>(occupancy(blend_fwd_kernel, 0, out));
 }
 
 // out[4]: blend_bwd_kernel's registers, local bytes, dynamic shared bytes

@@ -91,11 +91,10 @@ constexpr int OUT2 = 16;
 constexpr int GROUP_V1 = 32;      // instances per v1 backward reduction
 constexpr float NEAR_N = 0.2f;
 constexpr float M_COEF = static_cast<float>(100.0 / (100.0 - 0.2));
-// the forward's cull (see the note above); a warp's pixel block
+// the forward's cull (see the note above)
 constexpr float CULL_WIDEN = 1.f + 0x1p-10f;
 constexpr float CULL_PAD = 0x1p-10f;
 constexpr float CULL_FLOOR = 0x1p-100f;
-constexpr int BLOCK_W = 8, BLOCK_H = 4;
 enum { XY = 0, CA = 2, CB = 5, CC = 8, TW = 11, OPC = 14, RGB = 15,
        NRM = 18 };
 enum { O_RGB = 0, O_NRM = 3, O_D = 6, O_DIST = 7, O_T = 8, O_MED = 9,

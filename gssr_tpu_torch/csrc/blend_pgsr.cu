@@ -32,6 +32,11 @@
 // none of its pixels. The observe counts go through a warp ballot instead
 // of a sum.
 //
+// The forward is the vanilla blend's (blend.cu) with 7 channels in place
+// of 3: common.cuh::gauss_fwd_tile, whose alpha cull lets a warp walk only
+// the instances some pixel of its 8 x 4 block may see, bit for bit equal
+// to the walk over every instance.
+//
 // The backward's sum over pixels: an xor butterfly per row takes 5
 // shuffles and 5 adds a row and lane, 75 shuffles per warp and instance for
 // 15 rows, and an SM retires one warp shuffle per clock.
@@ -74,45 +79,13 @@ constexpr int PSTRIDE = CHUNK + 2;
 constexpr int BWDP_SMEM = (LIVEP * CHUNK + WARPS * ROWSP * PSTRIDE)
                           * static_cast<int>(sizeof(float));
 
-__global__ void __launch_bounds__(PIX)
+// the forward with its alpha cull (common.cuh::gauss_fwd_tile): the 7
+// channels and final_T per pixel
+__global__ void __launch_bounds__(PIX, 3)
 blend_pgsr_fwd_kernel(const float* __restrict__ attrs, long long n_inst,
                       const int* __restrict__ ranges, int tiles_x,
                       float* __restrict__ out) {
-  __shared__ float s[LIVEP][CHUNK];
-  const int t = blockIdx.x, p = threadIdx.x;
-  const int gx = (t % tiles_x) * TILE + p % TILE;
-  const int gy = (t / tiles_x) * TILE + p / TILE;
-  const float px = (float)gx, py = (float)gy;
-  const long long end = ranges[t + 1];
-  float D = 1.f, Tb = 1.f;
-  float acc[NCH];
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) acc[c] = 0.f;
-
-  for (long long base = ranges[t]; base < end; base += CHUNK) {
-    // also the barrier before the staging buffer is overwritten
-    if (!__syncthreads_or(D >= T_EPS)) break;
-    load_chunk<LIVEP>(s, attrs, n_inst, base);
-    __syncthreads();
-    for (int i = 0; i < CHUNK && D >= T_EPS; ++i) {
-      const Alpha al = chunk_alpha(s, i, px, py);
-      if (al.a > 0.f) {
-        const float one_m = 1.f - al.a;
-        const float Dn = D * one_m;
-        if (Dn >= T_EPS) {
-          const float w = al.a * D;
-#pragma unroll
-          for (int c = 0; c < NCH; ++c) acc[c] += w * s[P_CH + c][i];
-          Tb *= one_m;
-        }
-        D = Dn;
-      }
-    }
-  }
-  const long long pix = (long long)gy * (tiles_x * TILE) + gx;
-  float4* q = reinterpret_cast<float4*>(out) + pix * 2;
-  q[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  q[1] = make_float4(acc[4], acc[5], acc[6], Tb);
+  gauss_fwd_tile<NCH>(attrs, n_inst, ranges, tiles_x, out);
 }
 
 // per instance: the pixels where it contributes while D > 0.5
@@ -386,6 +359,12 @@ int gssr_blend_pgsr_bwd_v1(const float* attrs, long long n_inst,
                              static_cast<cudaStream_t>(stream)>>>(
       attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: blend_pgsr_fwd_kernel's registers, local bytes, dynamic shared
+// bytes (none) and resident blocks per SM
+int gssr_blend_pgsr_fwd_occupancy(int* out, void* stream) {
+  return static_cast<int>(occupancy(blend_pgsr_fwd_kernel, 0, out));
 }
 
 // out[4]: blend_pgsr_bwd_kernel's registers, local bytes, dynamic shared

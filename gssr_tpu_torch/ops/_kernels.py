@@ -6,7 +6,9 @@ shared library with a plain C interface,
 the nvcc runs for all sources start together. The libraries are loaded
 through ctypes. A hash covers the source, the shared header and the flags,
 so an edited source is rebuilt. Importing this module touches neither CUDA
-nor nvcc: CPU-only test runs import every module.
+nor nvcc: CPU-only test runs import every module. `build` also takes
+another checkout's csrc/ (chip_smoke.py --yardstick builds its parent
+commit's kernels beside these).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ _BWD = (_P, _I64, _P, _I32, _I32, _P, _P, _P)
 SOURCES = {
     "blend.cu": {
         "gssr_blend_fwd": _FWD,
+        "gssr_blend_fwd_occupancy": (_P,),
         "gssr_blend_bwd": _BWD,
         "gssr_blend_bwd_v1": _BWD,
         "gssr_blend_bwd_occupancy": (_P,),
@@ -49,6 +52,7 @@ SOURCES = {
     },
     "blend_pgsr.cu": {
         "gssr_blend_pgsr_fwd": _FWD,
+        "gssr_blend_pgsr_fwd_occupancy": (_P,),
         "gssr_blend_pgsr_obs": _FWD,
         "gssr_blend_pgsr_bwd": _BWD,
         "gssr_blend_pgsr_bwd_v1": _BWD,
@@ -67,28 +71,31 @@ def _nvcc() -> str:
     return exe
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, src_dir: Path = _SRC_DIR,
+                 build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for name in (source,) + HEADERS:
-        h.update((_SRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
+        h.update((src_dir / name).read_bytes())
+    return build_dir / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Compile every source whose hash is not built yet, one nvcc each, all
-    at once. Returns {"seconds": wall time, "libs": {source: {"path",
-    "seconds", "log"}}} (log: nvcc/ptxas output; seconds 0 if cached)."""
+def build(src_dir: Path = _SRC_DIR, build_dir: Path = BUILD_DIR) -> dict:
+    """Compile every source of src_dir whose hash is not built yet into
+    build_dir, one nvcc each, all at once. Returns {"seconds": wall time,
+    "libs": {source: {"path", "seconds", "log"}}} (log: nvcc/ptxas
+    output; seconds 0 if cached)."""
+    src_dir, build_dir = Path(src_dir), Path(build_dir)
     t0 = time.perf_counter()
     libs, procs = {}, {}
     for src in SOURCES:
-        so = library_path(src)
+        so = library_path(src, src_dir, build_dir)
         if so.exists():
             libs[src] = {"path": so, "seconds": 0.0,
                          "log": so.with_suffix(".log").read_text()}
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(_SRC_DIR / src)]
+        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(src_dir / src)]
         procs[src] = (so, tmp, cmd, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))

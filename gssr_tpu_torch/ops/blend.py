@@ -6,7 +6,11 @@ kernels of csrc/blend.cu; beside each is its plain PyTorch version
 (`blend_fwd_plain`, `blend_bwd_plain`), which the wrappers take for CPU
 tensors only. On a CUDA tensor a wrapper launches its kernel or raises.
 `blend_bwd_v1` launches the backward's first design, kept as the yardstick
-of the current one; no render calls it.
+of the current one; no render calls it. `warp_cull_plain` is the plain
+version of the forward kernel's alpha cull (csrc/common.cuh), the test
+that leaves an instance out of a warp's walk, and `alpha_cull_plain` the
+per-pair proof it rests on, which no kernel runs; both read rows 0-5,
+which the planar (PGSR) layout shares.
 
 Layouts:
 * instance attributes [NUM_ATTRS, I], attribute-major, 9 live rows
@@ -53,6 +57,14 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 
+# the forward kernels' alpha cull (csrc/common.cuh): the limit's widening,
+# the range of a robust conic and mean, and a warp's pixel block
+CULL_REL = 2.0 ** -10
+CULL_CONIC_MIN, CULL_CONIC_MAX = 2.0 ** -40, 2.0 ** 40
+CULL_MEAN_MAX = 2.0 ** 14
+BLOCK_W, BLOCK_H = 8, 4
+WARPS = PIX // 32
+
 # kernel launches since the last reset (the CPU plain path is not counted)
 LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0, "blend_bwd_v1": 0}
 
@@ -83,20 +95,98 @@ def _chunks(attrs, ranges):
         yield A, idx, live
 
 
-def _chunk_alpha(A, px, py):
-    """Per-(tile, pixel, instance) alpha [T, PIX, CHUNK], zero wherever
-    the blend skips, plus the intermediates the backward chains through."""
+def _power(A, px, py):
+    """The gaussian's exponent per (tile, pixel, instance), [T, PIX, CHUNK],
+    rounded after every operation as the kernels round it, and dx, dy."""
     def r(i):
         return A[i][:, None, :]
     dx = r(ATTR_MX) - px[..., None]
     dy = r(ATTR_MY) - py[..., None]
     power = -0.5 * (r(ATTR_CXX) * dx * dx + r(ATTR_CYY) * dy * dy) \
         - r(ATTR_CXY) * dx * dy
+    return power, dx, dy
+
+
+def _chunk_alpha(A, px, py):
+    """Per-(tile, pixel, instance) alpha [T, PIX, CHUNK], zero wherever
+    the blend skips, plus the intermediates the backward chains through."""
+    power, dx, dy = _power(A, px, py)
     g_exp = torch.exp(power)
-    raw = r(ATTR_OP) * g_exp
+    raw = A[ATTR_OP][:, None, :] * g_exp
     alpha = torch.clamp(raw, max=ALPHA_MAX)
     ok = (power <= 0.0) & (alpha >= ALPHA_MIN)
     return torch.where(ok, alpha, 0.0), (dx, dy, g_exp, raw, ok)
+
+
+def alpha_cull_limit(op):
+    """Per instance, the forward kernels' limit on power: L = -ln(255 op)
+    moved down by CULL_REL (|L| + 1). +inf where op = 0 (fillers), NaN
+    where op is negative or NaN (never culled)."""
+    L = -torch.log(255.0 * op)
+    return torch.where(L >= 0.0, L * (1.0 - CULL_REL),
+                       L * (1.0 + CULL_REL)) - CULL_REL
+
+
+def alpha_cull_plain(A, px, py):
+    """[T, PIX, CHUNK] bool, True where the per-pair proof shows the pair's
+    alpha 0: power < lim, from the power _chunk_alpha rounds. The margin
+    dwarfs every rounding on the way (csrc/common.cuh says why). No kernel
+    evaluates it: it is the lemma under warp_cull_plain, the test the
+    forward kernels run, and chip_smoke.py's bounds charge a pair it covers
+    in a walked warp step only this test."""
+    return _power(A, px, py)[0] < alpha_cull_limit(A[ATTR_OP])[:, None, :]
+
+
+def warp_blocks(x):
+    """[T, PIX, ...] in row-major tile order -> [T, WARPS, 32, ...]: warp w
+    of a culling forward covers the 8 x 4 block (w % 2, w // 2) of its
+    tile, lane l its pixel (l % 8, l // 8)."""
+    t, rest = x.shape[0], x.shape[2:]
+    x = x.reshape(t, TILE // BLOCK_H, BLOCK_H, TILE // BLOCK_W, BLOCK_W,
+                  *rest)
+    return x.transpose(2, 3).reshape(t, WARPS, 32, *rest)
+
+
+def warp_cull_plain(A, px, py):
+    """[T, WARPS, CHUNK] bool, True where warp w of the forward kernel
+    leaves the instance out of its walk: Qmin - CULL_REL Emax > -lim over
+    its block's pixel-centre rectangle for a robust conic, or lim = +inf
+    (csrc/common.cuh::block_culled). Qmin is the exact minimum of the
+    convex quadratic there, as ops/projection.py's tile_intersect_mask
+    computes it; the kernel may fuse Q's and Emax's products into FMAs,
+    which the margin covers as well."""
+    def r(i):
+        return A[i][:, None, :]
+    mx, my, cxx, cxy, cyy = (r(i) for i in (ATTR_MX, ATTR_MY, ATTR_CXX,
+                                            ATTR_CXY, ATTR_CYY))
+    bx0 = warp_blocks(px).amin(-1)[..., None]
+    by0 = warp_blocks(py).amin(-1)[..., None]
+    bx1, by1 = bx0 + (BLOCK_W - 1), by0 + (BLOCK_H - 1)
+    lim = alpha_cull_limit(r(ATTR_OP))
+    robust = ((cxx >= CULL_CONIC_MIN) & (cxx <= CULL_CONIC_MAX)
+              & (cyy >= CULL_CONIC_MIN) & (cyy <= CULL_CONIC_MAX)
+              & (cxy * cxy < (1.0 - CULL_REL) * cxx * cyy)
+              & (mx.abs() < CULL_MEAN_MAX) & (my.abs() < CULL_MEAN_MAX))
+    qcut = torch.where(lim == torch.inf, -torch.inf,
+                       torch.where(robust, -lim, torch.inf))
+    rx = torch.where(robust, cxy / cxx, 0.0)
+    ry = torch.where(robust, cxy / cyy, 0.0)
+
+    def q_of(x, y):
+        dx, dy = x - mx, y - my
+        return 0.5 * (cxx * dx * dx + cyy * dy * dy) + cxy * dx * dy
+
+    q = torch.minimum(
+        torch.minimum(q_of(bx0, torch.clamp(my - ry * (bx0 - mx), by0, by1)),
+                      q_of(bx1, torch.clamp(my - ry * (bx1 - mx), by0, by1))),
+        torch.minimum(q_of(torch.clamp(mx - rx * (by0 - my), bx0, bx1), by0),
+                      q_of(torch.clamp(mx - rx * (by1 - my), bx0, bx1), by1)))
+    inside = (mx >= bx0) & (mx <= bx1) & (my >= by0) & (my <= by1)
+    q = torch.where(inside, 0.0, q)
+    X = torch.maximum((bx0 - mx).abs(), (bx1 - mx).abs())
+    Y = torch.maximum((by0 - my).abs(), (by1 - my).abs())
+    E = 0.5 * (cxx.abs() * X * X + cyy.abs() * Y * Y) + cxy.abs() * X * Y
+    return (qcut == -torch.inf) | (q - CULL_REL * E > qcut)
 
 
 def _walk(a, D):

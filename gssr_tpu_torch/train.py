@@ -6,6 +6,12 @@ port:
 
 Runs on the CUDA card unless `--machine.device cpu` is given; without a
 card and without that flag it stops with an error.
+
+    python -m gssr_tpu_torch.train <method> --trainer.load-config \
+        <run>/config.yml [--machine.device cpu]
+
+re-runs a saved config (the port's or gssr_tpu's) under a fresh run
+directory, on the device this command names.
 """
 from __future__ import annotations
 
@@ -21,10 +27,13 @@ from gssr_tpu_torch.engine.trainer import Trainer
 
 def main(config: Config) -> Trainer:
     if config.trainer.load_config:
-        # re-run a saved config under a fresh timestamped run dir
+        # re-run a saved config under a fresh timestamped run dir, on the
+        # device this command names
         print(f"loading pre-set config from {config.trainer.load_config}")
+        device = config.machine.device
         config = load_config_yaml(config.trainer.load_config)
         config.timestamp = "{timestamp}"
+        config.machine.device = device
     if not config.source_path:
         raise SystemExit(
             "error: --source-path is required (a COLMAP scene directory)")

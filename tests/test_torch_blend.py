@@ -139,9 +139,10 @@ def test_segment_sum_is_the_per_gaussian_sum():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
-    """CUDA kernels against their plain versions on the same inputs; the
-    backward and its first design (blend_bwd_v1) also against each other,
-    bit for bit."""
+    """CUDA kernels against their plain versions on the same inputs, the
+    forward also on the alpha-edge draws (one tile each); the backward and
+    its first design (blend_bwd_v1) also against each other, bit for
+    bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
                     "at full size")
@@ -170,3 +171,226 @@ def test_kernels_match_plain_on_the_card():
                                         w // 16, h // 16))
     assert torch.equal(d_k, B.blend_bwd_v1(attrs, tb.tile_ranges, out_k, cot,
                                            w // 16, h // 16))
+    a, r, tx, ty = (x.to(dev) if torch.is_tensor(x) else x
+                    for x in edge_tiles(B.LIVE_ATTRS, B.NUM_ATTRS))
+    torch.testing.assert_close(B.blend_fwd(a, r, tx, ty),
+                               B.blend_fwd_plain(a, r, tx, ty), atol=1e-5,
+                               rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The forward kernels' alpha cull (csrc/common.cuh), through its plain
+# versions: neither the per-pair nor the per-(warp, instance) test may skip a
+# pair whose exact alpha (_chunk_alpha) is nonzero. The planar layout shares
+# rows 0-5 and the cull; tests/test_torch_blend_pgsr.py runs these helpers
+# on it.
+# ---------------------------------------------------------------------------
+
+def cull_masks(A, px, py):
+    """(exact alpha [T, PIX, C], pairs the per-pair proof culls, [T, WARPS,
+    C] steps the warp test culls) of chunk A; asserts that neither culls a
+    pair, or a warp a block, where the exact alpha is nonzero."""
+    from gssr_tpu_torch.ops import blend as B
+    a, _ = B._chunk_alpha(A, px, py)
+    pair = B.alpha_cull_plain(A, px, py)
+    warp = B.warp_cull_plain(A, px, py)
+    assert not bool((pair & (a != 0)).any())
+    assert not bool((warp & B.warp_blocks(a != 0).any(2)).any())
+    return a, pair, warp
+
+
+def assert_cull_is_conservative(attrs, ranges, tiles_x, tiles_y):
+    """Over every chunk of a scene: no wrong skip, and both culls fire on
+    most alpha-0 pairs of its real instances (a cull that never fires, or
+    only on fillers, fails)."""
+    from gssr_tpu_torch.ops import blend as B
+    px, py = B._pixel_coords(tiles_x, tiles_y, "cpu")
+    culled = zero = warps = 0
+    for A, _, _ in B._chunks(attrs, ranges):
+        real = (A[B.ATTR_OP] > 0)[:, None, :]
+        a, pair, warp = cull_masks(A, px, py)
+        culled += int((pair & real).sum())
+        zero += int(((a == 0) & real).sum())
+        warps += int((warp & real).sum())
+    assert culled >= 0.9 * zero > 0, (culled, zero)
+    assert warps > 0
+
+
+@pytest.mark.parametrize("kind,w,h", [("48", 32, 16), ("300", 64, 48),
+                                      ("overdraw", 16, 16)])
+def test_cull_skips_only_zero_alpha_pairs(kind, w, h):
+    from gssr_tpu_torch.ops.binning import bin_gaussians as tbin
+    from gssr_tpu_torch.ops.blend import pack_instance_attrs
+    inp, _ = _blend_inputs(_scene(kind, np.random.default_rng(0)), w, h)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in inp.items()}
+    tb = tbin(t["rect"], t["depth"], t["tiles"], w // 16, h // 16, t["mask"])
+    attrs = pack_instance_attrs(t["mean2d"], t["conic"], t["color"],
+                                t["opacity"], tb)
+    assert_cull_is_conservative(attrs, tb.tile_ranges, w // 16, h // 16)
+
+
+def test_gauss_cull_counts_charge_the_warp_test():
+    """chip_smoke.py's gauss_cull_counts and gauss_pair_ops, on which the
+    vanilla and planar kernels' bounds rest: the pairs are
+    blend_pair_count's, the warp test skips steps whole, every pair inside
+    them is one the per-pair proof covers too, and a skipped step is
+    charged the warp test once, fewer operations than the per-pair proof
+    on its pairs."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    from chip_smoke import (
+        GAUSS_OPS_PER_BLOCK_TEST,
+        GAUSS_OPS_PER_CULLED,
+        gauss_cull_counts,
+        gauss_pair_ops,
+    )
+    from gssr_tpu_torch.ops.binning import bin_gaussians as tbin
+    from gssr_tpu_torch.ops.blend import blend_pair_count, pack_instance_attrs
+    w, h = 64, 48
+    inp, _ = _blend_inputs(_scene("300", np.random.default_rng(0)), w, h)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in inp.items()}
+    tb = tbin(t["rect"], t["depth"], t["tiles"], w // 16, h // 16, t["mask"])
+    attrs = pack_instance_attrs(t["mean2d"], t["conic"], t["color"],
+                                t["opacity"], tb)
+    c = gauss_cull_counts(attrs, tb.tile_ranges, w // 16, h // 16)
+    pairs, _ = blend_pair_count(attrs, tb.tile_ranges, w // 16, h // 16)
+    assert c.pairs == pairs
+    assert 0 < c.whole < c.steps and pairs <= 32 * c.steps
+    assert c.whole < c.in_whole <= 32 * c.whole
+    assert c.in_whole + c.proof == c.culled < pairs
+    assert GAUSS_OPS_PER_BLOCK_TEST * c.whole \
+        < GAUSS_OPS_PER_CULLED * c.in_whole
+    full = 28 * pairs
+    assert gauss_pair_ops(28, c) == full - 28 * (c.in_whole + c.proof) \
+        + GAUSS_OPS_PER_CULLED * c.proof + GAUSS_OPS_PER_BLOCK_TEST * c.whole
+
+
+def edge_chunk(rng, log_c, spread, rows):
+    """One tile's chunk [rows, 1, CHUNK] of random gaussians whose power at
+    a corner pixel of one of the tile's 8 x 4 blocks lies within `spread`
+    (relative) of the alpha = 1/255 edge -ln(255 op), their means outside
+    the block beyond that corner; conic scale 10^log_c, some nearly
+    degenerate."""
+    from gssr_tpu_torch.ops import blend as B
+    n = B.CHUNK
+    op = rng.uniform(1 / 255, 1.0, n)
+    edge = np.log(255 * op)                       # -power at the edge
+    q = edge * (1 + rng.uniform(-spread, spread, n))
+    s = 10.0 ** log_c * np.exp(rng.uniform(-1, 1, (2, n)))
+    rho = rng.uniform(-0.999, 0.999, n)
+    cxx, cyy = s
+    cxy = rho * np.sqrt(cxx * cyy)
+    w = rng.integers(0, B.WARPS, n)
+    cx = (w % 2) * 8 + rng.choice([0, 7], n)
+    cy = (w // 2) * 4 + rng.choice([0, 3], n)
+    # a direction away from the block at that corner, scaled so that
+    # Q(corner - mean) = q
+    vx = np.where(cx % 8 == 0, -1.0, 1.0) * rng.uniform(0, 1, n)
+    vy = np.where(cy % 4 == 0, -1.0, 1.0) * rng.uniform(0, 1, n)
+    qv = 0.5 * (cxx * vx * vx + cyy * vy * vy) + cxy * vx * vy
+    k = np.sqrt(q / qv)
+    A = np.zeros((rows, n))
+    A[B.ATTR_MX] = cx + k * vx
+    A[B.ATTR_MY] = cy + k * vy
+    A[B.ATTR_CXX], A[B.ATTR_CXY], A[B.ATTR_CYY] = cxx, cxy, cyy
+    A[B.ATTR_OP] = op
+    A[B.ATTR_OP + 1:] = rng.uniform(0, 1, (rows - B.ATTR_OP - 1, n))
+    return torch.from_numpy(A.astype(np.float32))[:, None, :]
+
+
+def edge_draws():
+    """(seed, log_c, spread): the corners of the ranges, then seeded draws
+    inside them."""
+    rng = np.random.default_rng(255)
+    corners = [(k, c, s) for k, (c, s) in enumerate(
+        (c, s) for c in (-3.0, -1.0, 1.0) for s in (0.0, 0.05))]
+    draws = corners + [(int(rng.integers(2 ** 31)), float(rng.uniform(-3, 1)),
+                        float(rng.uniform(0, 0.05))) for _ in range(10)]
+    return [pytest.param(*d, id=f"c{d[1]:+.2f}-spread{d[2]:.3f}-{i}")
+            for i, d in enumerate(draws)]
+
+
+def check_edge_chunk(A):
+    """Gaussians at the alpha edge: no wrong skip, and both outcomes
+    occur, blending pairs and culled ones."""
+    from gssr_tpu_torch.ops.blend import _pixel_coords
+    a, pair, warp = cull_masks(A, *_pixel_coords(1, 1, "cpu"))
+    assert bool((a > 0).any()) and bool(pair.any()) and bool(warp.any())
+
+
+def edge_tiles(live, rows):
+    """Every edge draw as one tile of a 16-tile strip: (attrs [rows, I]
+    with rows `live` on zero, ranges, tiles_x, tiles_y), for the kernels'
+    comparison with their plain versions on the card."""
+    from gssr_tpu_torch.ops import blend as B
+    chunks = []
+    for t, d in enumerate(edge_draws()):
+        seed, log_c, spread = d.values
+        A = edge_chunk(np.random.default_rng(seed), log_c, spread, live)[:, 0]
+        A[B.ATTR_MX] += 16 * t
+        chunks.append(torch.cat([A, A.new_zeros(rows - live, B.CHUNK)]))
+    n = len(chunks)
+    ranges = torch.arange(n + 1, dtype=torch.int32) * B.CHUNK
+    return torch.cat(chunks, 1).contiguous(), ranges, n, 1
+
+
+@pytest.mark.parametrize("seed,log_c,spread", edge_draws())
+def test_cull_is_conservative_at_the_alpha_edge(seed, log_c, spread):
+    from gssr_tpu_torch.ops.blend import LIVE_ATTRS
+    check_edge_chunk(edge_chunk(np.random.default_rng(seed), log_c, spread,
+                                LIVE_ATTRS))
+
+
+_F_EDGE = np.float32(1 / 255)
+# (op, conic, mean, whether it blends somewhere, whether a warp may cull it)
+CULL_CASES = {
+    "filler": (0.0, (0.0, 0.0, 0.0), (0.0, 0.0), False, True),
+    "op_above": (float(np.nextafter(_F_EDGE, 1)), (0.5, 0.1, 0.5),
+                 (8.0, 8.0), True, True),
+    "op_below": (float(np.nextafter(_F_EDGE, 0)), (0.5, 0.1, 0.5),
+                 (8.0, 8.0), False, True),
+    "op_nan": (float("nan"), (0.5, 0.1, 0.5), (8.0, 8.0), False, False),
+    "huge_conic": (0.9, (1e6, 0.0, 1e6), (8.0, 8.0), True, True),
+    "conic_out_of_range": (0.9, (1e13, 0.0, 1e13), (8.0, 8.0), True, False),
+    "degenerate": (0.9, (1.0, 1.0, 1.0), (3.5, 9.5), True, False),
+    "mean_at_centre": (0.5, (0.02, -0.01, 0.03), (5.0, 6.0), True, True),
+    "power_positive": (0.9, (-1.0, 0.0, -1.0), (8.0, 8.0), True, False),
+}
+
+
+def cull_case(case, rows):
+    """Column 0 the case, column 1 a filler: chunk [rows, 1, 2]."""
+    from gssr_tpu_torch.ops import blend as B
+    op, (cxx, cxy, cyy), (mx, my), _, _ = CULL_CASES[case]
+    A = torch.zeros(rows, 1, 2)
+    for r, v in ((B.ATTR_MX, mx), (B.ATTR_MY, my), (B.ATTR_CXX, cxx),
+                 (B.ATTR_CXY, cxy), (B.ATTR_CYY, cyy), (B.ATTR_OP, op)):
+        A[r, 0, 0] = v
+    return A
+
+
+def check_cull_case(case, A):
+    """The cull against the exact alpha where its algebra is thin; the
+    filler column is culled at every pixel and by every warp."""
+    from gssr_tpu_torch.ops import blend as B
+    _, _, _, blends, warp_may = CULL_CASES[case]
+    a, pair, warp = cull_masks(A, *B._pixel_coords(1, 1, "cpu"))
+    assert bool(pair[..., 1].all()) and bool(warp[..., 1].all())
+    assert bool((a[..., 0] > 0).any()) == blends
+    if not warp_may:
+        assert not bool(warp[..., 0].any())
+    if case == "filler":
+        assert bool(pair.all()) and bool(warp.all())
+    if case == "op_nan":
+        assert not bool(pair[..., 0].any())
+    if case == "huge_conic":
+        # alpha > 0 at the mean's pixel alone; every other warp culls it
+        assert int((a[..., 0] > 0).sum()) == 1
+        assert int(warp[..., 0].sum()) == B.WARPS - 1
+
+
+@pytest.mark.parametrize("case", sorted(CULL_CASES))
+def test_cull_edge_cases(case):
+    from gssr_tpu_torch.ops.blend import LIVE_ATTRS
+    check_cull_case(case, cull_case(case, LIVE_ATTRS))

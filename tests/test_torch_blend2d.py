@@ -278,12 +278,12 @@ def test_cull_shares_count_the_walked_pairs():
     attrs, b = _jax_fns(W, H)[0](*_scene("cloud"))
     a_t = torch.from_numpy(np.array(attrs))
     r_t = torch.from_numpy(np.array(b.tile_ranges))
-    walked, culled, steps, whole = surfel_cull_counts(a_t, r_t, W // 16,
-                                                      H // 16)
+    c = surfel_cull_counts(a_t, r_t, W // 16, H // 16)
     pairs, _ = B.blend2d_pair_count(a_t, r_t, W // 16, H // 16)
-    assert walked == pairs
-    assert 0.5 * pairs < culled < pairs
-    assert 0 < whole < steps <= pairs // 32
+    assert c.pairs == pairs
+    assert 0.5 * pairs < c.culled < pairs
+    assert 0 < c.whole < c.steps <= pairs // 32
+    assert c.in_whole + c.proof == c.culled
 
 
 @pytest.mark.cuda

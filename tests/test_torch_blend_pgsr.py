@@ -8,15 +8,35 @@ and in one case an overdraw stack of nearly-opaque gaussians so that a
 tile saturates. Tolerances: forward atol 1e-5 / rtol 1e-4, gradient rows
 0-12 and 14-15 atol 2e-4 / rtol 2e-3 (tests/test_blend_pallas.py), the
 observe counts (the observe kernel and backward row 13) exactly.
+
+The planar forward kernel's alpha cull is the vanilla forward's
+(csrc/common.cuh, on rows 0-5): its plain versions never skip a pair with
+nonzero alpha on the planar packs, at the alpha edge and in the edge cases
+of tests/test_torch_blend.py, whose helpers run here on the planar layout.
 """
 import functools
 import math
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from test_torch_blend import (  # noqa: E402
+    CULL_CASES,
+    assert_cull_is_conservative,
+    check_cull_case,
+    check_edge_chunk,
+    cull_case,
+    edge_chunk,
+    edge_draws,
+    edge_tiles,
+)
 
 W, H = 32, 16
 
@@ -149,10 +169,33 @@ def test_pgsr_pair_count_counts_the_walked_pairs():
         assert 0 < float(obs.sum()) <= contributing < pairs
 
 
+@pytest.mark.parametrize("kind", ["cloud", "overdraw"])
+def test_planar_cull_skips_only_zero_alpha_pairs(kind):
+    from gssr_tpu_torch.ops import blend_pgsr as B
+    attrs, b = _jax_fns(W, H)[0](*_scene(kind))
+    assert_cull_is_conservative(
+        torch.from_numpy(np.array(attrs))[:B.LIVE_ATTRS_P],
+        torch.from_numpy(np.array(b.tile_ranges)), W // 16, H // 16)
+
+
+@pytest.mark.parametrize("seed,log_c,spread", edge_draws())
+def test_planar_cull_is_conservative_at_the_alpha_edge(seed, log_c, spread):
+    from gssr_tpu_torch.ops.blend_pgsr import LIVE_ATTRS_P
+    check_edge_chunk(edge_chunk(np.random.default_rng(seed), log_c, spread,
+                                LIVE_ATTRS_P))
+
+
+@pytest.mark.parametrize("case", sorted(CULL_CASES))
+def test_planar_cull_edge_cases(case):
+    from gssr_tpu_torch.ops.blend_pgsr import LIVE_ATTRS_P
+    check_cull_case(case, cull_case(case, LIVE_ATTRS_P))
+
+
 @pytest.mark.cuda
 def test_planar_kernels_match_plain_on_the_card():
     """The three CUDA kernels against their plain versions on the same
-    inputs; the backward and its first design (blend_pgsr_bwd_v1) also
+    inputs, the forward also on the alpha-edge draws (one tile each); the
+    backward and its first design (blend_pgsr_bwd_v1) also
     against each other and each twice, bit for bit, with the observe
     kernel's counts in row 13."""
     if not torch.cuda.is_available():
@@ -180,3 +223,8 @@ def test_planar_kernels_match_plain_on_the_card():
     torch.testing.assert_close(d_k[B.blend_pgsr_bwd],
                                d_k[B.blend_pgsr_bwd_v1], atol=2e-4,
                                rtol=2e-3)
+    a, r, tx, ty = (x.to(dev) if torch.is_tensor(x) else x
+                    for x in edge_tiles(B.LIVE_ATTRS_P, B.NUM_ATTRS_P))
+    torch.testing.assert_close(B.blend_pgsr_fwd(a, r, tx, ty),
+                               B.blend_pgsr_fwd_plain(a, r, tx, ty),
+                               atol=1e-5, rtol=1e-4)

@@ -201,6 +201,69 @@ def test_a_gssr_tpu_pgsr_checkpoint_resumes_in_the_port(scene_dir,
         js.dataloader.next_train().image_name
 
 
+@pytest.fixture(scope="module")
+def gssr_tpu_run(scene_dir, tmp_path_factory):
+    """A pgsr run directory that gssr_tpu wrote: its config.yml (two
+    iterations) and the PLY of step 3. Returns (config path, number of
+    train cameras)."""
+    from gssr_tpu.configs.methods import get_method_config as j_config
+    from gssr_tpu.engine.trainer import Trainer as JTrainer
+
+    jc = _configure(j_config("pgsr"), scene_dir,
+                    str(tmp_path_factory.mktemp("j_run")))
+    jc.timestamp = "run"
+    jc.trainer.iterations = 2
+    jc.trainer.test_iterations = [2]
+    jc.trainer.save_iterations = [2]
+    jc.trainer.log_interval = 1
+    jt = JTrainer(jc)
+    jt.setup()
+    jt.save_gaussians(jt.scene.state, 3)
+    jc.save_config()
+    return (jc.get_base_dir() / "config.yml",
+            len(jt.scene.dataloader.train_cameras))
+
+
+def test_extract_mesh_reads_a_gssr_tpu_pgsr_run(gssr_tpu_run):
+    """`extract_mesh --load-config` on a run directory that gssr_tpu wrote
+    (its config.yml and PLY): the port drops the config's gssr_tpu-only
+    fields and renders every camera."""
+    from gssr_tpu_torch import extract_mesh
+
+    cfg, n_cams = gssr_tpu_run
+    res = extract_mesh.main(["--load-config", str(cfg), "--machine.device",
+                             "cpu", "--skip-mesh"])
+    renders = sorted((cfg.parent / "mesh_3" / "renders").glob("*.png"))
+    assert len(renders) == n_cams > 0
+    assert res["seconds"]["render"] > 0
+
+
+def test_train_reads_a_gssr_tpu_pgsr_run(gssr_tpu_run, capsys):
+    """`train --trainer.load-config` on a gssr_tpu run's config.yml re-runs
+    it in the port, on the CPU this command names: its two steps train
+    pgsr in a new run directory beside the old one, with finite losses and
+    the PLY of step 2."""
+    from gssr_tpu_torch import train
+    from gssr_tpu_torch.configs.cli import parse_config
+
+    cfg, _ = gssr_tpu_run
+    trainer = train.main(parse_config(
+        ["pgsr", "--trainer.load-config", str(cfg), "--machine.device",
+         "cpu"]))
+    notes = capsys.readouterr().out
+    assert "dropped gssr_tpu field MachineConfig.num_devices" in notes
+    config = trainer.config
+    assert config.machine.device == "cpu"
+    assert config.method_name == "pgsr"
+    run_dir = config.get_base_dir()
+    assert run_dir != cfg.parent and run_dir.parent == cfg.parent.parent
+    assert (run_dir / "DONE").read_text() == "iterations=2\n"
+    assert (run_dir / "point_cloud" / "iteration_2"
+            / "point_cloud.ply").exists()
+    losses = [loss for _, loss, *_ in trainer.history]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
 def test_cli_trains_pgsr_and_extracts_a_mesh_on_the_cpu(scene_dir, tmp_path):
     from gssr_tpu.utils.mesh_extract import read_mesh_ply
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
