@@ -7,13 +7,15 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
 
 1. build    one nvcc per source of gssr_tpu_torch/csrc/, all started
             together, for sm_90a; prints the build seconds, the registers
-            and spills, and the card; for the six redesigned kernels
+            and spills, and the card; for the seven redesigned kernels
             (vanilla forward and backward, surfel forward and backward,
-            planar forward and backward) also their dynamic shared memory
-            and resident blocks per SM, which must be at least 3, 3, 3, 2,
-            3 and 3, with no spill. With --yardstick DIR it also builds
-            DIR's kernels (DIR/gssr_tpu_torch/csrc/, a checkout of the
-            parent commit) into build/yardstick/.
+            planar forward, observe count and backward) also their dynamic
+            shared memory and resident blocks per SM, which must be at
+            least 3, 3, 3, 2, 3, 4 and 3, with no spill (the observe
+            count's 4 blocks of 256 threads cap it at 64 registers). With
+            --yardstick DIR it also builds DIR's kernels
+            (DIR/gssr_tpu_torch/csrc/, a checkout of the parent commit)
+            into build/yardstick/.
             (`python -m gssr_tpu_torch.sass_count` prints the kernels'
             SASS instruction counts.)
 2. kernels  each blend kernel against its plain PyTorch version on the
@@ -22,64 +24,82 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             observe and backward with ~20k gaussians and random normals and
             plane distances, each with a dense overdraw stack (so the early
             stop fires; for the surfels the median too, for the planar
-            observe count its T > 0.5 cut-off) and a seeded randn
-            cotangent; each backward runs twice and must agree bit for bit,
-            and the planar backward's observe row must equal the observe
-            kernel's counts. The first designs of the four redesigned
-            kernels (the *_v1 kernels, their yardstick) pass the same checks
-            and must equal the current ones bit for bit; each pair is timed
-            in turns. With --yardstick, the vanilla and planar forwards
-            must equal DIR's bit for bit.
+            observe count its D > 0.5 cut-off) and a seeded randn
+            cotangent; the observe count also on observe_cases' hand-built
+            stacks (D exactly 0.5, the 0.5 point on either side of a chunk
+            boundary, a warp done beside walking ones, a tile that never
+            reaches 0.5). Each backward runs twice and must agree bit for
+            bit, and the planar backward's observe row must equal the
+            observe kernel's counts. The first designs of the four
+            redesigned backward and surfel kernels (the *_v1 kernels, their
+            yardstick) pass the same checks and must equal the current ones
+            bit for bit; each pair is timed in turns. With --yardstick, the
+            vanilla and planar forwards and the observe count must equal
+            DIR's bit for bit, and the observe count is timed in turns with
+            DIR's.
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
             rendered by the port from a separate random gaussian set):
             `python -m gssr_tpu_torch.train 3dgs`, then `... 2dgs`, then
             `... pgsr` with its two-camera step after step MULTI_VIEW_FROM,
-            STEPS steps each with SH degree 3 and two densify passes.
-            Asserts finite losses, image losses that fall, a changed
-            n_active, a written PLY, and that every train render launched
-            the path's forward and backward kernels (two renders on a
-            multi-view step) and no render launched a *_v1 backward; for
-            pgsr also ring neighbours and no camera
-            its own, and geo and NCC losses above 0 on every multi-view
-            step. Prints the median step (for pgsr also single- and
-            multi-view apart), its tail, Mpix/s, peak memory.
+            then `... scaffold-gs` at the preset's full width (feat_dim 32,
+            10 offsets, appearance_dim 32; statistics from step 3), STEPS
+            steps each with two densify passes (the first three paths with
+            SH degree 3). Asserts finite losses, image losses that fall, a
+            changed n_active, the written PLY (scaffold-gs: also its
+            _mlp.npz and checkpoints.pth), and that every train render
+            launched the path's forward and backward kernels (two renders on
+            a multi-view step) and no render launched a *_v1 backward; for
+            pgsr also ring neighbours and no camera its own, and geo and NCC
+            losses above 0 on every multi-view step; for scaffold-gs a
+            scaling loss above 0 at every step. Prints the median step (for
+            pgsr also single- and multi-view apart), its tail, Mpix/s, peak
+            memory; for scaffold-gs the anchors grown and pruned at each
+            adjust_anchor and the visible anchors and neural gaussians per
+            render.
    mesh     `python -m gssr_tpu_torch.extract_mesh` in process: the 2dgs
             run bounded at a 257^3 grid and unbounded at 128^3, the pgsr run
-            bounded, its renders launching the observe kernel once per
-            camera. Asserts non-empty meshes; prints their sizes and the
-            seconds of rendering, fusion and marching tetrahedra.
+            bounded; no render launches the observe kernel. Asserts
+            non-empty meshes; prints their sizes and the seconds of
+            rendering, fusion and marching tetrahedra.
 4. report   all seven kernels against their plain versions again, at their
             main path's own inputs (the trained model, one of its cameras):
             the vanilla pair under the cotangent of its loss, the surfel
             pair under that of the 2dgs loss with both regularisers live
             plus a random one on median_normal, the planar kernels under
             that of the pgsr multi-view loss, each channel group scaled to
-            unit size; with times and bounds, the four redesigned kernels
-            timed in turns with their v1 kernels (plain, v1, new, new, v1;
-            "v1_ms" in their rows) after asserting that each equals its v1
-            bit for bit. At the 3dgs, 2dgs and pgsr inputs it also prints,
-            from the plain versions of the forwards' culls, the share of
-            evaluated pairs the per-pair test proves zero and the share of
-            (warp, instance) steps that a warp's 8 x 4 block skips whole
-            (the vanilla and planar forwards' instance lists; for the
+            unit size; with times and bounds, the four redesigned backward
+            and surfel kernels timed in turns with their v1 kernels (v1,
+            new, new, v1; "v1_ms" in their rows) after asserting that each
+            equals its v1 bit for bit, and each plain version timed on its
+            one comparison call. At the 3dgs, 2dgs and pgsr inputs it also
+            prints, from the plain versions of the forwards' culls, the
+            share of evaluated pairs the per-pair test proves zero and the
+            share of (warp, instance) steps that a warp's 8 x 4 block skips
+            whole (the vanilla and planar forwards' instance lists; for the
             surfels, where every walking lane skips), from which the
             kernels' bounds charge such pairs only the test that proves
-            them zero. With --yardstick, the vanilla and planar
-            forwards must equal DIR's bit for bit, are timed in turns with
+            them zero; for the observe count the same up to each pixel's
+            D <= 0.5 point, where its walk and its bound end. The vanilla
+            pair also runs at the scaffold-gs path's inputs (the neural
+            gaussians decoded for camera 0), printed apart: the
+            {"kernels": [...]} line keeps one row per kernel. With
+            --yardstick, the vanilla and planar forwards and the observe
+            count must equal DIR's bit for bit, are timed in turns with
             them (DIR, new, new, DIR) and their rows gain "parent_ms".
-            Prints the
-            {"kernels": [...]} line, the card, and last the {"ok": true,
-            "device": {...}} line.
+            Prints the {"kernels": [...]} line, the card, and last the
+            {"ok": true, "device": {...}} line.
 
 --profile FILE adds three profiled train steps to each path after phase 3
 and writes torch.profiler's per-kernel tables to FILE (3dgs) and to FILE
-with `_2dgs` and `_pgsr` before its suffix.
+with `_2dgs`, `_pgsr` and `_scaffold` before its suffix; for scaffold-gs it
+also prints the step's stages (scene/scaffold.py's profiler ranges).
 
 --yardstick DIR names a checkout of the parent commit (for example `git
 archive HEAD` unpacked under build/): its vanilla and planar forward
-kernels are the yardstick the redesigned ones are held and timed against.
+kernels and its observe count are the yardstick the redesigned ones are
+held and timed against.
 """
 from __future__ import annotations
 
@@ -117,9 +137,10 @@ FWD2_OPS_PER_CONTRIB = 30
 BWD2_OPS_PER_CONTRIB = 103
 # the same for the planar kernels of gssr_tpu_torch/csrc/blend_pgsr.cu: per
 # evaluated pair the gaussian (17) and the walk (5), and for the observe
-# count its one comparison more; per contributing pair the weight, 7
-# channel sums and T forward, and backward the weight, u (7 FMAs), the
-# prefix, da, 15 gradient terms and one add a row for the sum over pixels
+# count its one comparison more (its pairs end at each pixel's 0.5 point);
+# per contributing pair the weight, 7 channel sums and T forward, and
+# backward the weight, u (7 FMAs), the prefix, da, 15 gradient terms and
+# one add a row for the sum over pixels
 FWDP_OPS_PER_PAIR = 22
 FWDP_OPS_PER_CONTRIB = 16
 OBSP_OPS_PER_PAIR = 23
@@ -160,7 +181,8 @@ MESH_METHODS = {"2dgs": ("bounded", "unbounded"), "pgsr": ("bounded",)}
 # the kernels each main path must launch at every render of a train step
 PATH_KERNELS = {"3dgs": ("blend_fwd", "blend_bwd"),
                 "2dgs": ("blend2d_fwd", "blend2d_bwd"),
-                "pgsr": ("blend_pgsr_fwd", "blend_pgsr_bwd")}
+                "pgsr": ("blend_pgsr_fwd", "blend_pgsr_bwd"),
+                "scaffold-gs": ("blend_fwd", "blend_bwd")}
 # the first designs of the redesigned kernels, kept as the yardstick of the
 # current ones: no render may launch them
 V1_KERNELS = ("blend_bwd_v1", "blend2d_fwd_v1", "blend2d_bwd_v1",
@@ -172,13 +194,23 @@ OCCUPANCY = {"gssr_blend_fwd_occupancy": 3,
              "gssr_blend2d_fwd_occupancy": 3,
              "gssr_blend2d_bwd_occupancy": 2,
              "gssr_blend_pgsr_fwd_occupancy": 3,
+             "gssr_blend_pgsr_obs_occupancy": 4,
              "gssr_blend_pgsr_bwd_occupancy": 3}
-# the forwards --yardstick holds against the parent commit's: wrapper ->
-# (C entry point, output channels per pixel)
+# the kernels --yardstick holds against the parent commit's: wrapper ->
+# (C entry point, output channels per pixel; None for the observe count,
+# one float per instance slot)
 YARDSTICK = {"blend_fwd": ("gssr_blend_fwd", 4),
-             "blend_pgsr_fwd": ("gssr_blend_pgsr_fwd", 8)}
-# each path's options beyond the common ones
-METHOD_ARGS = {"pgsr": ["--scene.multi-view-from", str(MULTI_VIEW_FROM)]}
+             "blend_pgsr_fwd": ("gssr_blend_pgsr_fwd", 8),
+             "blend_pgsr_obs": ("gssr_blend_pgsr_obs", None)}
+# each path's options beyond the common ones: SH degree 3 from step 15
+# (the scaffold model has no SH); scaffold-gs gathers its statistics from
+# step 3, so that adjust_anchor after steps 20 and 30 has offsets and
+# anchors seen often enough to grow and prune
+SH_ARGS = ["--scene.gaussians.oneup-sh-interval", "5"]
+METHOD_ARGS = {"3dgs": SH_ARGS, "2dgs": SH_ARGS,
+               "pgsr": SH_ARGS + ["--scene.multi-view-from",
+                                  str(MULTI_VIEW_FROM)],
+               "scaffold-gs": ["--scene.gaussians.start-stat", "2"]}
 
 
 def card() -> str:
@@ -207,6 +239,18 @@ def event_ms(fn, reps: int) -> list:
 
 def median_ms(fn, reps: int) -> float:
     return statistics.median(event_ms(fn, reps))
+
+
+def timed(fn):
+    """fn() and its CUDA-event time in ms, from this one call (the plain
+    versions are timed so: their one call is also their comparison's)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def turns_ms(v1, new, reps: int = 20):
@@ -367,25 +411,29 @@ def bind_parent(libs, entry):
 
 def parent_fwd(bound, rows, attrs, ranges, tiles_x, tiles_y):
     """The parent commit's forward (bind_parent's `bound`) on these inputs
-    -> [H, W, rows]; called here, so no LAUNCHES count moves."""
+    -> [H, W, rows], or with rows None its observe count -> [I] (zero-
+    filled first, as its entry point asks); called here, so no LAUNCHES
+    count moves."""
     import ctypes
 
     from gssr_tpu_torch.ops.blend import _ptr
     fn, error_string = bound
-    out = torch.empty((tiles_y * 16, tiles_x * 16, rows),
-                      dtype=torch.float32, device=attrs.device)
+    out = (torch.zeros(attrs.shape[1], dtype=torch.float32,
+                       device=attrs.device) if rows is None else
+           torch.empty((tiles_y * 16, tiles_x * 16, rows),
+                       dtype=torch.float32, device=attrs.device))
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     err = fn(_ptr(attrs), ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
              ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(out),
              ctypes.c_void_p(stream))
     if err:
-        raise RuntimeError(f"the parent's forward: "
+        raise RuntimeError(f"the parent's kernel: "
                            f"{error_string(err).decode()}")
     return out
 
 
 def assert_parent_equal(parent, name, out, *inputs):
-    """With --yardstick, the forward `name`'s maps `out` must equal the
+    """With --yardstick, kernel `name`'s result `out` must equal the
     parent commit's on the same inputs, bit for bit."""
     if parent is not None:
         assert torch.equal(out, parent[name](*inputs)), \
@@ -451,6 +499,71 @@ def overdraw_scene(g, n, n_dense, scale_dim):
                          u(n_dense, 1, 0.9, 0.99)])[:, 0]
     colors = u(n, 3, 0.0, 1.0)
     return means, scales, rots, opacity, colors
+
+
+def observe_cases():
+    """A planar pack built by hand to hit every case of the observe
+    count's stop at D <= 0.5, on 3 x 2 tiles (48 x 32 pixels), each
+    tile's instances in depth order and padded with zero filler columns
+    to whole chunks. "Flat" instances have a zero conic (alpha = op
+    exactly at every pixel); rows past the 6 geometry rows are zero.
+
+    tile 0  D exactly 0.5: op 0.5, then 0.3 and 0.2 (counted 256, 0, 0)
+    tile 1  the 0.5 point at the last instance of chunk 0: 126 x op
+            0.004, op 0.1, op 0.2 (D 0.603, 0.543, 0.434), then chunk 1's
+            op 0.3 three times, which no pixel counts
+    tile 2  the 0.5 point at the first instance of chunk 1: as tile 1 up
+            to op 0.1, then op 0.03 (D 0.527), chunk 1 op 0.2 (counted,
+            D 0.421), op 0.5 and op 0.3 (not counted)
+    tile 3  a warp done while its neighbours walk: op 0.99 with conic
+            0.02 over warp 0's 8 x 4 block takes its D below 0.15 (and
+            part of warp 1's below 0.5); four flat op 0.1 follow
+    tile 4  a tile that never reaches 0.5: three flat op 0.1 (D 0.729)
+    tile 5  no instance
+
+    Returns (attrs [16, I], ranges [7] int32, 3, 2, {slot: count}), on
+    the CPU, with the counts that the cases fix."""
+    from gssr_tpu_torch.ops.blend import CHUNK
+    from gssr_tpu_torch.ops.blend_pgsr import NUM_ATTRS_P
+    tiles_x, tiles_y = 3, 2
+
+    def flat(t, op):
+        cx, cy = 16 * (t % tiles_x) + 7.5, 16 * (t // tiles_x) + 7.5
+        return (cx, cy, 0.0, 0.0, 0.0, op)
+
+    ramp = [0.004] * 126 + [0.1]
+    stacks = [
+        [flat(0, op) for op in (0.5, 0.3, 0.2)],
+        [flat(1, op) for op in ramp + [0.2] + [0.3] * 3],
+        [flat(2, op) for op in ramp + [0.03, 0.2, 0.5, 0.3]],
+        [(3.5, 17.5, 0.02, 0.0, 0.02, 0.99)] + [flat(3, 0.1)] * 4,
+        [flat(4, 0.1)] * 3,
+        [],
+    ]
+    cols, ranges = [], [0]
+    for st in stacks:
+        pad = -len(st) % CHUNK
+        cols += st + [(0.0,) * 6] * pad
+        ranges.append(len(cols))
+    attrs = torch.zeros((NUM_ATTRS_P, len(cols)), dtype=torch.float32)
+    attrs[:6] = torch.tensor(cols, dtype=torch.float32).T
+    r = ranges
+    want = {r[0]: 256, r[0] + 1: 0, r[0] + 2: 0,
+            r[1] + 127: 256, r[1] + 128: 0,
+            r[2] + 127: 256, r[2] + 128: 256, r[2] + 129: 0,
+            r[3]: 256, r[4]: 256, r[4] + 2: 256}
+    return (attrs, torch.tensor(ranges, dtype=torch.int32), tiles_x,
+            tiles_y, want)
+
+
+def assert_observe_cases(obs, ranges, want):
+    """The counts observe_cases fixes, and its tile 3: warp 0's 32 pixels
+    and part of warp 1's are done after the first instance, the others
+    count the next one."""
+    for slot, n in want.items():
+        assert int(obs[slot]) == n, (slot, int(obs[slot]), n)
+    later = int(obs[int(ranges[3]) + 1])
+    assert 0 < later <= 256 - 32 - 1, later
 
 
 def phase_kernels2d(dev):
@@ -526,6 +639,15 @@ def phase_kernels_pgsr(dev, parent=None):
     assert saturated > 0, "the overdraw stack did not saturate"
     obs_k = B.blend_pgsr_observe(attrs, ranges, tx, ty)
     assert torch.equal(obs_k, B.blend_pgsr_obs_plain(attrs, ranges, tx, ty))
+    assert_parent_equal(parent, "blend_pgsr_obs", obs_k, attrs, ranges, tx,
+                        ty)
+    a_c, r_c, tx_c, ty_c, want = observe_cases()
+    a_c, r_c = a_c.to(dev), r_c.to(dev)
+    obs_c = B.blend_pgsr_observe(a_c, r_c, tx_c, ty_c)
+    assert torch.equal(obs_c, B.blend_pgsr_obs_plain(a_c, r_c, tx_c, ty_c))
+    assert_observe_cases(obs_c, r_c, want)
+    assert_parent_equal(parent, "blend_pgsr_obs", obs_c, a_c, r_c, tx_c,
+                        ty_c)
     pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
     observed = int(obs_k.sum())
     assert 0 < observed < contrib, \
@@ -544,8 +666,14 @@ def phase_kernels_pgsr(dev, parent=None):
         assert torch.equal(d[B.P_OBS], obs_k)
     assert torch.equal(per_gaussian(d_k[B.P_OBS], b), per_gaussian(obs_k, b))
     fwd_ms = median_ms(lambda: B.blend_pgsr_fwd(attrs, ranges, tx, ty), 20)
-    obs_ms = median_ms(lambda: B.blend_pgsr_observe(attrs, ranges, tx, ty),
-                       20)
+    obs = partial(B.blend_pgsr_observe, attrs, ranges, tx, ty)
+    if parent is None:
+        obs_line = f"{median_ms(obs, 20):.4f} ms"
+    else:
+        base_ms, obs_ms = turns_ms(partial(parent["blend_pgsr_obs"], attrs,
+                                           ranges, tx, ty), obs)
+        obs_line = (f"{obs_ms:.4f} ms  parent {base_ms:.4f} ms; bitwise "
+                    f"equal to the parent's")
     v1_ms, bwd_ms = turns_ms(bwd_v1, bwd)
     print(f"[kernels pgsr] 256x256, {n} gaussians, {attrs.shape[1]} "
           f"instance slots, {saturated} saturated pixels; {contrib} "
@@ -553,7 +681,10 @@ def phase_kernels_pgsr(dev, parent=None):
     print(f"[kernels pgsr] blend_pgsr_fwd max|err| "
           f"{max_err(out_k, out_p):.3e}  {fwd_ms:.4f} ms"
           + ("; bitwise equal to the parent's" if parent else ""))
-    print(f"[kernels pgsr] blend_pgsr_obs exact  {obs_ms:.4f} ms")
+    print(f"[kernels pgsr] blend_pgsr_obs exact, and on observe_cases' "
+          f"stacks (D exactly 0.5, the 0.5 point at either side of a chunk "
+          f"boundary, a warp done beside walking ones, a tile that never "
+          f"reaches 0.5)  {obs_line}")
     print(f"[kernels pgsr] blend_pgsr_bwd max|err| {max_err(d_k, d_p):.3e}  "
           f"{bwd_ms:.4f} ms  v1 max|err| {max_err(d_v1, d_p):.3e}  "
           f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: yes; "
@@ -700,10 +831,9 @@ def phase_train(dev, root, card_line, method):
         "--trainer.test-iterations", str(STEPS),
         "--trainer.save-iterations", str(STEPS),
         "--trainer.log-interval", "1",
-        "--scene.gaussians.oneup-sh-interval", "5",
         "--scene.gaussians.densify-from-iter", "10",
         "--scene.gaussians.densification-interval", "10",
-        *METHOD_ARGS.get(method, [])])
+        *METHOD_ARGS[method]])
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -725,14 +855,19 @@ def phase_train(dev, root, card_line, method):
     last_epoch = STEPS // N_CAMS * N_CAMS
     last = statistics.mean(losses[last_epoch - N_CAMS:last_epoch])
     assert last < first, (first, last)
-    assert scene.gaussians.active_sh_degree(STEPS) == 3
-    n0 = min(N_POINTS, state.active.shape[0])
-    assert int(state.n_active) != n0, "densify changed nothing"
-    ply = config.get_gaussian_dir() / f"iteration_{STEPS}" / \
-        "point_cloud.ply"
-    assert ply.exists() and ply.stat().st_size > 0, ply
-    renders = STEPS
     tag = f"[train {method}]"
+    saved = config.get_gaussian_dir() / f"iteration_{STEPS}"
+    files = ["point_cloud.ply"]
+    if method == "scaffold-gs":
+        files += ["point_cloud_mlp.npz", "checkpoints.pth"]
+        n0 = scaffold_lines(tag, scene, hist)
+    else:
+        assert scene.gaussians.active_sh_degree(STEPS) == 3
+        n0 = min(N_POINTS, state.active.shape[0])
+    assert int(state.n_active) != n0, "densify changed nothing"
+    for f in files:
+        assert (saved / f).stat().st_size > 0, saved / f
+    renders = STEPS
     # step time: from one log point to the next, so from step 3 on
     step_ms = {b[0]: 1e3 * (b[3] - a[3]) for a, b in zip(hist[1:], hist[2:])}
     if method == "pgsr":
@@ -766,11 +901,33 @@ def phase_train(dev, root, card_line, method):
     return trainer, launches
 
 
+def scaffold_lines(tag, scene, hist) -> int:
+    """The scaffold path's own checks and prints: a scaling loss above 0
+    at every step, anchors grown and pruned at each adjust_anchor, and
+    the visible anchors and decoded neural gaussians per train render.
+    Returns the anchor count before the first adjust_anchor."""
+    assert all(h[4]["scaling_loss"] > 0 for h in hist)
+    log = scene.anchor_log
+    assert [e[0] for e in log] == [20, 30], log
+    for step, grown, pruned, n_after in log:
+        print(f"{tag} adjust_anchor after step {step}: {grown} anchors "
+              f"grown, {pruned} pruned, {n_after} active")
+    vis = sorted(h[4]["n_visible"] for h in hist)
+    neural = sorted(h[4]["n_neural"] for h in hist)
+    print(f"{tag} per train render: visible anchors median "
+          f"{statistics.median(vis):.0f} ({vis[0]:.0f}-{vis[-1]:.0f}), "
+          f"rendered neural gaussians median {statistics.median(neural):.0f} "
+          f"({neural[0]:.0f}-{neural[-1]:.0f}) of "
+          f"{scene.config.gaussians.n_offsets} per visible anchor")
+    _, grown, pruned, n_after = log[0]
+    return n_after - grown + pruned
+
+
 def phase_mesh(trainer, card_line):
     """`python -m gssr_tpu_torch.extract_mesh` on a run, in process, with
     each of its MESH_METHODS options: bounded at a grid of about 256^3,
     unbounded at 128^3. Each renders every camera once through the path's
-    forward kernel, and a pgsr render also counts its observe."""
+    forward kernel, and no render launches the observe kernel."""
     from gssr_tpu_torch import extract_mesh
     from gssr_tpu_torch.utils.mesh_extract import read_mesh_ply
     method = trainer.config.method_name
@@ -786,8 +943,8 @@ def phase_mesh(trainer, card_line):
         wall = time.perf_counter() - t0
         launches = read_counts()
         assert launches[PATH_KERNELS[method][0]] >= N_CAMS, launches
-        if method == "pgsr":
-            assert launches["blend_pgsr_obs"] == N_CAMS, launches
+        # nothing reads a mesh render's observe counts
+        assert launches["blend_pgsr_obs"] == 0, launches
         verts, faces = read_mesh_ply(str(res["mesh_path"]))
         assert len(verts) > 0 and len(faces) > 0, (name, len(verts))
         assert np.isfinite(verts).all()
@@ -799,7 +956,31 @@ def phase_mesh(trainer, card_line):
               f"{sec['mtet']:.2f} s; launches {launches}  | {card_line}",
               flush=True)
         runs[name] = launches
+    if method == "pgsr":
+        observe_saving(trainer, card_line)
     return runs
+
+
+@torch.no_grad()
+def observe_saving(trainer, card_line):
+    """The eval and mesh renders of the pgsr run (every training camera,
+    eval_render's arguments) with the observe kernel, as before it was
+    dropped from them, and without, as now: in turns (with, without,
+    without, with), three reps of all cameras each."""
+    scene, state = trainer.scene, trainer.scene.state
+    dev = state.active.device
+    cams = [c.arrays(dev) for c in scene.dataloader.train_cameras]
+    degree = scene.gaussians.active_sh_degree(10 ** 9)
+
+    def renders(observe):
+        for cam in cams:
+            scene.render_params(state.params, cam, degree, state.active,
+                                scene.background, forward_observe=observe)
+
+    with_ms, without_ms = turns_ms(partial(renders, True),
+                                   partial(renders, False), reps=3)
+    print(f"[mesh pgsr] {len(cams)} eval/mesh renders: {with_ms:.2f} ms with "
+          f"the observe kernel, {without_ms:.2f} ms without  | {card_line}")
 
 
 def phase_profile(trainer, path, card_line):
@@ -824,9 +1005,11 @@ def phase_profile(trainer, path, card_line):
         v = getattr(e, "self_device_time_total", None)
         return v if v is not None else e.self_cuda_time_total
 
-    # kernels only: an operator's row repeats the time of its kernels
+    # kernels only: an operator's row repeats the time of its kernels, and
+    # a profiler range's device row spans the kernels it ran
     kernels = [e for e in avgs
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("scaffold.")]
     busy = sum(dev_us(e) for e in kernels)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -841,6 +1024,25 @@ def phase_profile(trainer, path, card_line):
     for e in top:
         print(f"{tag} {dev_us(e) / 3e3:9.3f} ms/step  {e.count // 3:5d} "
               f"calls/step  {e.key[:90]}")
+    # the step's stages where the scene marks them (scene/scaffold.py):
+    # each range has a host row (host time inside it, the device time of
+    # the kernels it launched) and a device row (its span on the device)
+    stages = {}
+    for e in avgs:
+        if e.key.startswith("scaffold."):
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = e.cuda_time_total
+            st = stages.setdefault(e.key, {"host": 0.0, "kernels": 0.0,
+                                           "span": 0.0})
+            if e.cpu_time_total > 0:
+                st.update(host=e.cpu_time_total, kernels=total)
+            else:
+                st["span"] = total
+    for key, st in stages.items():
+        print(f"{tag} stage {key:26s} host {st['host'] / 3e3:8.3f} ms/step, "
+              f"its kernels {st['kernels'] / 3e3:8.3f} ms/step, device span "
+              f"{st['span'] / 3e3:8.3f} ms/step")
 
 
 # ---------------------------------------------------------------------------
@@ -857,21 +1059,26 @@ def bound(ops, nbytes):
 
 @torch.no_grad()
 def cull_counts(attrs, ranges, tiles_x, tiles_y, alpha, pair_cull,
-                warp_cull=None):
+                warp_cull=None, walks=None):
     """What a forward's cull skips on these inputs, from its plain version
     (alpha, pair_cull and warp_cull map a chunk and the pixel centres to
     [T, PIX, CHUNK] alpha and culled pairs, and [T, WARPS, CHUNK] culled
-    warp steps). Returns a namespace: pairs, the evaluated pairs as the
-    pair counts count them; culled, those the per-pair test proves zero;
-    steps, the (warp, instance) steps in which some lane of a warp's 8 x 4
-    pixel block evaluates the pair; whole, those the warp skips whole
-    (where warp_cull says so, or without it where every such lane's pair
-    is culled); in_whole, the pairs inside them; proof, the culled pairs
-    inside the other steps. A lane's skip saves issue slots only in a
-    whole step."""
+    warp steps). A pixel evaluates an instance while walks(D) holds for
+    the transmittance D before it (default D >= T_EPS, the blends' stop;
+    the observe count walks while D > 0.5). Returns a namespace: pairs, the
+    evaluated pairs (for the default, as the pair counts count them);
+    culled, those the per-pair test proves zero; steps, the (warp,
+    instance) steps in which some lane of a warp's 8 x 4 pixel block
+    evaluates the pair; whole, those the warp skips whole (where warp_cull
+    says so, or without it where every such lane's pair is culled);
+    in_whole, the pairs inside them; proof, the culled pairs inside the
+    other steps; slots, the instance slots of the chunks in which some
+    pixel of their tile evaluates a pair. A lane's skip saves issue slots
+    only in a whole step."""
     from types import SimpleNamespace
 
     from gssr_tpu_torch.ops.blend import (
+        CHUNK,
         T_EPS,
         _chunks,
         _pixel_coords,
@@ -879,15 +1086,17 @@ def cull_counts(attrs, ranges, tiles_x, tiles_y, alpha, pair_cull,
         warp_blocks,
     )
     from gssr_tpu_torch.ops.blend2d import _tile_batches
+    if walks is None:
+        walks = lambda d: d >= T_EPS                    # noqa: E731
     px, py = _pixel_coords(tiles_x, tiles_y, attrs.device)
     c = SimpleNamespace(pairs=0, culled=0, steps=0, whole=0, in_whole=0,
-                        proof=0)
+                        proof=0, slots=0)
     for t0, t1 in _tile_batches(tiles_x * tiles_y):
         x, y = px[t0:t1], py[t0:t1]
         D = torch.ones_like(x)
         for A, _, live in _chunks(attrs, ranges[t0:t1 + 1]):
             _, d_before, _, _, D = _walk(alpha(A, x, y), D)
-            walked = (d_before >= T_EPS) & live[:, None, None]
+            walked = walks(d_before) & live[:, None, None]
             culled = walked & pair_cull(A, x, y)
             lanes = warp_blocks(walked)
             step = lanes.any(2)
@@ -900,6 +1109,7 @@ def cull_counts(attrs, ranges, tiles_x, tiles_y, alpha, pair_cull,
             c.whole += int(whole.sum())
             c.in_whole += int((lanes & whole).sum())
             c.proof += int((warp_blocks(culled) & ~whole).sum())
+            c.slots += CHUNK * int(walked.any(2).any(1).sum())
     return c
 
 
@@ -911,15 +1121,15 @@ def surfel_cull_counts(attrs, ranges, tiles_x, tiles_y):
                        B.surfel_cull_plain)
 
 
-def gauss_cull_counts(attrs, ranges, tiles_x, tiles_y):
+def gauss_cull_counts(attrs, ranges, tiles_x, tiles_y, walks=None):
     """cull_counts of the vanilla and planar forwards' cull, whose warps
     walk only the instances warp_cull_plain leaves in (alpha_cull_plain,
     the per-pair proof under it, no kernel runs); rows 0-5, which the two
-    layouts share."""
+    layouts share. The observe count's walk passes walks=D > 0.5."""
     from gssr_tpu_torch.ops import blend as B
     return cull_counts(attrs[:B.ATTR_R], ranges, tiles_x, tiles_y,
                        lambda A, x, y: B._chunk_alpha(A, x, y)[0],
-                       B.alpha_cull_plain, B.warp_cull_plain)
+                       B.alpha_cull_plain, B.warp_cull_plain, walks)
 
 
 def gauss_pair_ops(per_pair, c):
@@ -943,14 +1153,13 @@ def print_cull_shares(tag, c):
           f"{c.proof} proved pairs")
 
 
-def report_row(name, source, replaces, launches, err, fn, plain, ops,
+def report_row(name, source, replaces, launches, err, fn, plain_ms, ops,
                nbytes, v1=None, parent=None):
-    """The kernel's row of the {"kernels": [...]} line. With its v1 kernel
-    `v1`, or the parent commit's kernel `parent`, the two are timed in
-    turns after the plain version (plain, v1, new, new, v1) and the row
-    gains "v1_ms" or "parent_ms"."""
+    """The kernel's row of the {"kernels": [...]} line; plain_ms is the
+    plain version's time (timed). With its v1 kernel `v1`, or the parent
+    commit's kernel `parent`, the two are timed in turns (v1, new, new,
+    v1) and the row gains "v1_ms" or "parent_ms"."""
     bound_ms, bound_by = bound(ops, nbytes)
-    plain_ms = median_ms(plain, 3)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err}
     base = v1 if v1 is not None else parent
@@ -1013,9 +1222,8 @@ def assert_forward_pair(out_k, out_v1, out_p, sel):
 
 
 def phase_report(trainer, launches, dev, parent=None):
-    from types import SimpleNamespace
-
-    from gssr_tpu_torch.ops import blend as B
+    """The vanilla pair at the 3dgs path's own inputs (the trained model,
+    camera 0): its rows of the {"kernels": [...]} line."""
     from gssr_tpu_torch.ops.sh import sh_to_color
     scene, state = trainer.scene, trainer.scene.state
     g, p = scene.gaussians, state.params
@@ -1023,12 +1231,56 @@ def phase_report(trainer, launches, dev, parent=None):
     cam = cam_h.arrays(dev)
     with torch.no_grad():
         color = sh_to_color(3, g.get_features(p), p["xyz"], cam.campos)
-        attrs, ranges, tx, ty = blend_inputs(
+        inputs = blend_inputs(
             p["xyz"], g.get_scaling(p), g.get_rotation(p),
             g.get_opacity(p)[:, 0], color, cam, scene.width, scene.height,
             active=state.active)
+    return vanilla_pair("[report 3dgs]", scene, cam_h, cam, inputs,
+                        launches, parent)
+
+
+def phase_report_scaffold(trainer, launches, dev, card_line):
+    """The vanilla pair at the scaffold-gs path's own inputs: the neural
+    gaussians that the trained anchors and MLP decode for camera 0. Its
+    numbers are printed here; the {"kernels": [...]} line keeps the 3dgs
+    path's rows of the same two kernels."""
+    scene, state = trainer.scene, trainer.scene.state
+    cam_h = scene.dataloader.train_cameras[0]
+    cam = cam_h.arrays(dev)
+    with torch.no_grad():
+        visible, gate = scene.visible_anchors(state, cam, STEPS)
+        ng = scene.gaussians.decode(state.anchors, state.mlp, cam.campos,
+                                    cam_h.uid, visible, state.active,
+                                    level_scale_gate=gate)
+        inputs = blend_inputs(ng.xyz, ng.scaling, ng.rotation, ng.opacity,
+                              ng.color, cam, scene.width, scene.height,
+                              active=ng.mask)
+    tag = "[report scaffold-gs]"
+    print(f"{tag} camera 0: {int(visible.sum())} visible anchors of "
+          f"{int(state.n_active)}, {int(ng.mask.sum())} of "
+          f"{ng.mask.shape[0]} neural gaussians with opacity > 0")
+    for row in vanilla_pair(tag, scene, cam_h, cam, inputs, launches):
+        print(f"{tag} {row['name']}: max|err| {row['max_abs_err']:.3e}, "
+              f"{row['ms']:.4f} ms (v1 {row.get('v1_ms', float('nan')):.4f} "
+              f"ms), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"plain {row['plain_ms']:.1f} ms, {row['launches']} launches "
+              f"on the path  | {card_line}", flush=True)
+
+
+def vanilla_pair(tag, scene, cam_h, cam, inputs, launches, parent=None):
+    """The vanilla forward and backward against their plain versions on
+    `inputs` (blend_inputs' tuple, from camera cam_h of `scene`), under
+    the cotangent of the scene's image loss scaled to unit size; the
+    backward also against its v1 kernel, bit for bit, and timed in turns
+    with it; with `parent`, the forward against the parent commit's.
+    Prints the cull shares; returns the two report rows."""
+    from types import SimpleNamespace
+
+    from gssr_tpu_torch.ops import blend as B
+    attrs, ranges, tx, ty = inputs
     out_k = B.blend_fwd(attrs, ranges, tx, ty)
-    out_p = B.blend_fwd_plain(attrs, ranges, tx, ty)
+    out_p, fwd_plain_ms = timed(lambda: B.blend_fwd_plain(attrs, ranges, tx,
+                                                          ty))
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
     assert_parent_equal(parent, "blend_fwd", out_k, attrs, ranges, tx, ty)
     # the cotangent of the training loss itself, scaled to unit size: the
@@ -1044,7 +1296,8 @@ def phase_report(trainer, launches, dev, parent=None):
     bwd = partial(B.blend_bwd, attrs, ranges, out_k, cot, tx, ty)
     bwd_v1 = partial(B.blend_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
     d_k, d_v1 = bwd(), bwd_v1()
-    d_p = B.blend_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
+    d_p, bwd_plain_ms = timed(lambda: B.blend_bwd_plain(attrs, ranges, out_k,
+                                                        cot, tx, ty))
     assert_live_rows(d_p, B.LIVE_ATTRS)
     assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS), B.LIVE_ATTRS,
                          bwd, bwd_v1)
@@ -1052,7 +1305,7 @@ def phase_report(trainer, launches, dev, parent=None):
     pairs, _ = B.blend_pair_count(attrs, ranges, tx, ty)
     cull = gauss_cull_counts(attrs, ranges, tx, ty)
     assert cull.pairs == pairs, (cull.pairs, pairs)
-    print_cull_shares("[report 3dgs]", cull)
+    print_cull_shares(tag, cull)
     n_inst = attrs.shape[1]
     hw = out_k.shape[0] * out_k.shape[1]
     live_bytes = B.LIVE_ATTRS * n_inst * 4 + ranges.numel() * 4
@@ -1061,18 +1314,15 @@ def phase_report(trainer, launches, dev, parent=None):
     rows = [
         report_row("blend_fwd", src, "gssr_tpu/ops/blend_pallas.py:158",
                    launches["blend_fwd"], max_err(out_k, out_p), fwd,
-                   lambda: B.blend_fwd_plain(attrs, ranges, tx, ty),
-                   gauss_pair_ops(FWD_OPS_PER_PAIR, cull),
+                   fwd_plain_ms, gauss_pair_ops(FWD_OPS_PER_PAIR, cull),
                    live_bytes + hw * 16,
                    parent=parent and partial(parent["blend_fwd"], attrs,
                                              ranges, tx, ty)),
         report_row("blend_bwd", src, "gssr_tpu/ops/blend_pallas.py:265",
                    launches["blend_bwd"], max_err(d_k, d_p), bwd,
-                   lambda: B.blend_bwd_plain(attrs, ranges, out_k, cot, tx,
-                                             ty),
-                   gauss_pair_ops(BWD_OPS_PER_PAIR, cull),
+                   bwd_plain_ms, gauss_pair_ops(BWD_OPS_PER_PAIR, cull),
                    live_bytes + 2 * hw * 16 + attrs.numel() * 4, v1=bwd_v1)]
-    print(f"[report 3dgs] blend inputs: {tx * 16}x{ty * 16} padded, "
+    print(f"{tag} blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs "
           f"before saturation", flush=True)
     return rows
@@ -1103,7 +1353,8 @@ def phase_report2d(trainer, launches, dev):
     fwd = partial(B.blend2d_fwd, attrs, ranges, tx, ty)
     fwd_v1 = partial(B.blend2d_fwd_v1, attrs, ranges, tx, ty)
     out_k = fwd()
-    out_p = B.blend2d_fwd_plain(attrs, ranges, tx, ty)
+    out_p, fwd_plain_ms = timed(lambda: B.blend2d_fwd_plain(attrs, ranges,
+                                                            tx, ty))
     assert_forward_pair(out_k, fwd_v1(), out_p, B.O_SELPOS)
 
     scene.config = dataclasses.replace(scene.config, lambda_dist=1000.0,
@@ -1131,7 +1382,8 @@ def phase_report2d(trainer, launches, dev):
     bwd = partial(B.blend2d_bwd, attrs, ranges, out_k, cot, tx, ty)
     bwd_v1 = partial(B.blend2d_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
     d_k, d_v1 = bwd(), bwd_v1()
-    d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
+    d_p, bwd_plain_ms = timed(lambda: B.blend2d_bwd_plain(
+        attrs, ranges, out_k, cot, tx, ty))
     assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2), B.LIVE_ATTRS2,
                          bwd, bwd_v1)
     # the rows of the low-pass centre and of CA stay far below the others
@@ -1160,14 +1412,11 @@ def phase_report2d(trainer, launches, dev):
     rows = [
         report_row("blend2d_fwd", src, "gssr_tpu/ops/blend2d_pallas.py:127",
                    launches["blend2d_fwd"], max_err(out_k, out_p), fwd,
-                   lambda: B.blend2d_fwd_plain(attrs, ranges, tx, ty),
-                   pair_ops + FWD2_OPS_PER_CONTRIB * contrib,
+                   fwd_plain_ms, pair_ops + FWD2_OPS_PER_CONTRIB * contrib,
                    live_bytes + out_bytes, v1=fwd_v1),
         report_row("blend2d_bwd", src, "gssr_tpu/ops/blend2d_pallas.py:269",
                    launches["blend2d_bwd"], max_err(d_k, d_p), bwd,
-                   lambda: B.blend2d_bwd_plain(attrs, ranges, out_k, cot,
-                                               tx, ty),
-                   pair_ops + BWD2_OPS_PER_CONTRIB * contrib,
+                   bwd_plain_ms, pair_ops + BWD2_OPS_PER_CONTRIB * contrib,
                    live_bytes + 2 * out_bytes + attrs.numel() * 4,
                    v1=bwd_v1)]
     print(f"[report 2dgs] surfel blend inputs: {tx * 16}x{ty * 16} padded, "
@@ -1209,13 +1458,17 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
             distance, cam, scene.width, scene.height, active=state.active)
     ranges = b.tile_ranges
     out_k = B.blend_pgsr_fwd(attrs, ranges, tx, ty)
-    out_p = B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty)
+    out_p, fwd_plain_ms = timed(lambda: B.blend_pgsr_fwd_plain(attrs, ranges,
+                                                               tx, ty))
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
     assert_parent_equal(parent, "blend_pgsr_fwd", out_k, attrs, ranges, tx,
                         ty)
     obs_k = B.blend_pgsr_observe(attrs, ranges, tx, ty)
-    obs_p = B.blend_pgsr_obs_plain(attrs, ranges, tx, ty)
+    obs_p, obs_plain_ms = timed(lambda: B.blend_pgsr_obs_plain(attrs, ranges,
+                                                               tx, ty))
     assert torch.equal(obs_k, obs_p)
+    assert_parent_equal(parent, "blend_pgsr_obs", obs_k, attrs, ranges, tx,
+                        ty)
 
     step = STEPS
     f = out_k.clone().requires_grad_(True)
@@ -1248,7 +1501,8 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
     bwd = partial(B.blend_pgsr_bwd, attrs, ranges, out_k, cot, tx, ty)
     bwd_v1 = partial(B.blend_pgsr_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
     d_k, d_v1 = bwd(), bwd_v1()
-    d_p = B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
+    d_p, bwd_plain_ms = timed(lambda: B.blend_pgsr_bwd_plain(
+        attrs, ranges, out_k, cot, tx, ty))
     grad_rows = [r for r in range(B.NUM_ATTRS_P) if r != B.P_OBS]
     assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P, bwd,
                          bwd_v1)
@@ -1271,6 +1525,15 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
     cull = gauss_cull_counts(attrs, ranges, tx, ty)
     assert cull.pairs == pairs, (cull.pairs, pairs)
     print_cull_shares("[report pgsr] planar", cull)
+    # the observe count's own work: the pairs up to every pixel's 0.5
+    # point, and the block test of a warp step it skips whole
+    obs_cull = gauss_cull_counts(attrs, ranges, tx, ty,
+                                 walks=lambda d: d > 0.5)
+    print_cull_shares("[report pgsr] observe (to D <= 0.5)", obs_cull)
+    print(f"[report pgsr] observe: {pairs - obs_cull.pairs} of {pairs} "
+          f"pairs to T_EPS ({100 * (1 - obs_cull.pairs / pairs):.2f} %) lie "
+          f"past their pixel's 0.5 point; the tiles read {obs_cull.slots} "
+          f"of {attrs.shape[1]} instance slots up to their stop")
     n_inst = attrs.shape[1]
     hw = out_k.shape[0] * out_k.shape[1]
     range_bytes = ranges.numel() * 4
@@ -1282,8 +1545,7 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
         report_row("blend_pgsr_fwd", src, f"{pallas}:83",
                    launches["blend_pgsr_fwd"], max_err(out_k, out_p),
                    partial(B.blend_pgsr_fwd, attrs, ranges, tx, ty),
-                   lambda: B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty),
-                   gauss_pair_ops(FWDP_OPS_PER_PAIR, cull)
+                   fwd_plain_ms, gauss_pair_ops(FWDP_OPS_PER_PAIR, cull)
                    + FWDP_OPS_PER_CONTRIB * contrib,
                    live_bytes + map_bytes,
                    parent=parent and partial(parent["blend_pgsr_fwd"],
@@ -1291,14 +1553,13 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
         report_row("blend_pgsr_obs", src, f"{pallas}:182",
                    launches["blend_pgsr_obs"], max_err(obs_k, obs_p),
                    lambda: B.blend_pgsr_observe(attrs, ranges, tx, ty),
-                   lambda: B.blend_pgsr_obs_plain(attrs, ranges, tx, ty),
-                   gauss_pair_ops(OBSP_OPS_PER_PAIR, cull),
-                   B.P_RGB * n_inst * 4 + range_bytes + n_inst * 4),
+                   obs_plain_ms, gauss_pair_ops(OBSP_OPS_PER_PAIR, obs_cull),
+                   B.P_RGB * obs_cull.slots * 4 + range_bytes + n_inst * 4,
+                   parent=parent and partial(parent["blend_pgsr_obs"],
+                                             attrs, ranges, tx, ty)),
         report_row("blend_pgsr_bwd", src, f"{pallas}:216",
                    launches["blend_pgsr_bwd"], max_err(d_k, d_p), bwd,
-                   lambda: B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot,
-                                                  tx, ty),
-                   gauss_pair_ops(BWDP_OPS_PER_PAIR, cull)
+                   bwd_plain_ms, gauss_pair_ops(BWDP_OPS_PER_PAIR, cull)
                    + BWDP_OPS_PER_CONTRIB * contrib,
                    live_bytes + 2 * map_bytes + attrs.numel() * 4,
                    v1=bwd_v1)]
@@ -1314,8 +1575,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None)
     ap.add_argument("--yardstick", default=None, metavar="DIR",
                     help="a checkout of the parent commit whose vanilla and "
-                         "planar forwards the current ones must equal bit "
-                         "for bit and are timed against")
+                         "planar forwards and observe count the current "
+                         "ones must equal bit for bit and are timed against")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1339,6 +1600,8 @@ def main(argv=None) -> int:
         trainer3, launches3 = phase_train(dev, root, card_line, "3dgs")
         trainer2, launches2 = phase_train(dev, root, card_line, "2dgs")
         trainerp, launchesp = phase_train(dev, root, card_line, "pgsr")
+        trainers, launchess = phase_train(dev, root, card_line,
+                                          "scaffold-gs")
         phase_mesh(trainer2, card_line)
         phase_mesh(trainerp, card_line)
         if args.profile:
@@ -1346,9 +1609,11 @@ def main(argv=None) -> int:
             phase_profile(trainer3, args.profile, card_line)
             phase_profile(trainer2, f"{stem}_2dgs{ext}", card_line)
             phase_profile(trainerp, f"{stem}_pgsr{ext}", card_line)
+            phase_profile(trainers, f"{stem}_scaffold{ext}", card_line)
         rows = phase_report(trainer3, launches3, dev, parent)
         rows += phase_report2d(trainer2, launches2, dev)
         rows += phase_report_pgsr(trainerp, launchesp, dev, parent)
+        phase_report_scaffold(trainers, launchess, dev, card_line)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

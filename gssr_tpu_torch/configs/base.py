@@ -133,7 +133,9 @@ def save_config_yaml(config: Config, path):
 # profiler window, scan_block (K steps per XLA dispatch, the same steps)
 # and the scene's instance_cap (the port sizes the instance buffer exactly
 # per render) and blend backend (both compute the same blend) change no
-# result of a single-device run.
+# result of a single-device run, nor does the scaffold model's
+# visible_budget_factor (the port sizes the visible-anchor decode exactly
+# per step; the reference grows its budget whenever it overflows).
 _SCENE_FIELDS = {"instance_cap": None, "backend": ("pallas", "reference")}
 FOREIGN_FIELDS = {
     "Config": {"retrain": None, "partitioner": None, "writer": None,
@@ -146,6 +148,8 @@ FOREIGN_FIELDS = {
     "VanillaSceneConfig": _SCENE_FIELDS,
     "TwoDGSSceneConfig": _SCENE_FIELDS,
     "PGSRSceneConfig": _SCENE_FIELDS,
+    "ScaffoldSceneConfig": _SCENE_FIELDS,
+    "ScaffoldGaussianConfig": {"visible_budget_factor": None},
 }
 
 

@@ -1,8 +1,8 @@
 """Method registry (port of gssr_tpu/configs/methods.py).
 
-The `3dgs`, `2dgs` and `pgsr` presets are ported; the reference's other
-six methods are listed so that asking for one fails with a clear message
-until their slice lands.
+The `3dgs`, `2dgs`, `pgsr` and `scaffold-gs` presets are ported; the
+reference's other five methods are listed so that asking for one fails
+with a clear message until their slice lands.
 """
 from __future__ import annotations
 
@@ -52,16 +52,30 @@ def _pgsr():
             gaussians=PGSRGaussianConfig()))
 
 
+def _scaffold():
+    from gssr_tpu_torch.models.scaffold import ScaffoldGaussianConfig
+    from gssr_tpu_torch.scene.scaffold import ScaffoldSceneConfig
+    return Config(
+        method_name="scaffold-gs",
+        scene=ScaffoldSceneConfig(
+            dataloader=DataLoaderConfig(),
+            gaussians=ScaffoldGaussianConfig(),
+            lambda_scaling=0.01))
+
+
 METHOD_FACTORIES: Dict[str, Callable[[], Config]] = {"3dgs": _vanilla,
                                                      "2dgs": _twodgs,
-                                                     "pgsr": _pgsr}
+                                                     "pgsr": _pgsr,
+                                                     "scaffold-gs": _scaffold}
 
-NOT_YET_PORTED = ("scaffold-gs", "octree-gs", "scaffold-2dgs",
-                  "octree-2dgs", "scaffold-pgsr", "octree-pgsr")
+NOT_YET_PORTED = ("octree-gs", "scaffold-2dgs", "octree-2dgs",
+                  "scaffold-pgsr", "octree-pgsr")
 
 DESCRIPTIONS = {"3dgs": "Vanilla 3D Gaussian Splatting",
                 "2dgs": "2DGS surfel splatting",
-                "pgsr": "PGSR planar splatting with multi-view regularization"}
+                "pgsr": "PGSR planar splatting with multi-view regularization",
+                "scaffold-gs": "Scaffold-GS anchors with MLP-decoded neural "
+                               "gaussians"}
 
 
 def get_method_config(name: str) -> Config:
@@ -79,11 +93,16 @@ def get_method_config(name: str) -> Config:
 def build_scene(config: Config, device, **kwargs):
     """Instantiate the scene matching the scene config's type."""
     from gssr_tpu_torch.scene.pgsr import PGSRScene, PGSRSceneConfig
+    from gssr_tpu_torch.scene.scaffold import (
+        ScaffoldScene,
+        ScaffoldSceneConfig,
+    )
     from gssr_tpu_torch.scene.twodgs import TwoDGSScene, TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaScene, VanillaSceneConfig
     scenes = {VanillaSceneConfig: VanillaScene,
               TwoDGSSceneConfig: TwoDGSScene,
-              PGSRSceneConfig: PGSRScene}
+              PGSRSceneConfig: PGSRScene,
+              ScaffoldSceneConfig: ScaffoldScene}
     cls = scenes.get(type(config.scene))
     if cls is None:
         raise NotImplementedError(
@@ -95,13 +114,15 @@ def build_scene(config: Config, device, **kwargs):
 def config_classes():
     """Name -> class map for YAML round trips."""
     from gssr_tpu_torch.models.pgsr import PGSRGaussianConfig
+    from gssr_tpu_torch.models.scaffold import ScaffoldGaussianConfig
     from gssr_tpu_torch.models.twod import TwoDGaussianConfig
     from gssr_tpu_torch.models.vanilla import VanillaGaussianConfig
     from gssr_tpu_torch.scene.pgsr import PGSRSceneConfig
+    from gssr_tpu_torch.scene.scaffold import ScaffoldSceneConfig
     from gssr_tpu_torch.scene.twodgs import TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaSceneConfig
     classes = [Config, MachineConfig, TrainerConfig, DataLoaderConfig,
                VanillaGaussianConfig, VanillaSceneConfig,
                TwoDGaussianConfig, TwoDGSSceneConfig, PGSRGaussianConfig,
-               PGSRSceneConfig]
+               PGSRSceneConfig, ScaffoldGaussianConfig, ScaffoldSceneConfig]
     return {c.__name__: c for c in classes}

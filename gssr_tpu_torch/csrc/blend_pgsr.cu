@@ -32,6 +32,13 @@
 // none of its pixels. The observe counts go through a warp ballot instead
 // of a sum.
 //
+// The observe count needs less: a pixel's count can only grow while its
+// D > 0.5, so blend_pgsr_obs_kernel stops each pixel, warp and tile at
+// that point rather than at 1e-4, and each warp walks only the instances
+// of the forward's per-warp list (common.cuh::warp_list) with one ballot
+// each; its least work is the pairs up to every pixel's 0.5 point, and
+// the block test once for a (warp, instance) step it skips whole.
+//
 // The forward is the vanilla blend's (blend.cu) with 7 channels in place
 // of 3: common.cuh::gauss_fwd_tile, whose alpha cull lets a warp walk only
 // the instances some pixel of its 8 x 4 block may see, bit for bit equal
@@ -88,45 +95,77 @@ blend_pgsr_fwd_kernel(const float* __restrict__ attrs, long long n_inst,
   gauss_fwd_tile<NCH>(attrs, n_inst, ranges, tiles_x, out);
 }
 
-// per instance: the pixels where it contributes while D > 0.5
-__global__ void __launch_bounds__(PIX)
+// Per instance: the pixels where it contributes while D > 0.5, D the
+// transmittance before it over every alpha > 0. A count can only grow
+// while D > 0.5, and D never rises, so a pixel is done once D <= 0.5, a
+// warp once its 32 pixels are, and the tile once all of them are: the
+// walk stops there, after the instance that took D to <= 0.5. (Where D >
+// 0.5 and alpha <= 0.99, the new D is above 0.004, so the T_EPS test of
+// the count never fails before that point.) Warp w covers the 8 x 4 block
+// (w % 2, w / 2) of the tile and walks, as the forward does, only the
+// instances of its list (common.cuh::warp_list): a culled instance has
+// alpha 0 at every pixel of the block, so it leaves D as it is and
+// counts 0 there. A walked instance takes one ballot; lane j keeps the
+// count of instances j, 32 + j, 64 + j and 96 + j in registers, so the
+// rest of the chunk stays zero, and the 8 warps' counts are summed in
+// warp order once per chunk. Every count equals that of the walk over
+// every instance to T_EPS (blend_pgsr_obs_plain), integer for integer.
+__global__ void __launch_bounds__(PIX, 4)
 blend_pgsr_obs_kernel(const float* __restrict__ attrs, long long n_inst,
                       const int* __restrict__ ranges, int tiles_x,
                       float* __restrict__ obs) {
-  __shared__ float s[GEOM_ROWS][CHUNK];
+  __shared__ float4 geo[2][CHUNK];
+  __shared__ float2 slope[CHUNK];
   __shared__ int cnt[WARPS][CHUNK];
   const int t = blockIdx.x, p = threadIdx.x;
   const int warp = p / 32, lane = p % 32;
-  const float px = (float)((t % tiles_x) * TILE + p % TILE);
-  const float py = (float)((t / tiles_x) * TILE + p / TILE);
+  const int bx = (t % tiles_x) * TILE + (warp % 2) * BLOCK_W;
+  const int by = (t / tiles_x) * TILE + (warp / 2) * BLOCK_H;
+  const float px = (float)(bx + lane % BLOCK_W);
+  const float py = (float)(by + lane / BLOCK_W);
   const long long end = ranges[t + 1];
   float D = 1.f;
 
   for (long long base = ranges[t]; base < end; base += CHUNK) {
-    // also the barrier before the staging buffers are overwritten;
-    // chunks after the tile saturates keep their zero count
-    if (!__syncthreads_or(D >= T_EPS)) break;
-    load_chunk<GEOM_ROWS>(s, attrs, n_inst, base);
+    // also the barrier before the staging buffers and counts are
+    // overwritten; chunks after the tile is done keep their zero count
+    if (!__syncthreads_or(D > 0.5f)) break;
+    if (p < CHUNK) stage_cull(geo, slope, attrs, n_inst, base, p);
     __syncthreads();
-    for (int i = 0; i < CHUNK; ++i) {
-      bool seen = false;
-      if (D >= T_EPS) {
-        const Alpha al = chunk_alpha(s, i, px, py);
-        if (al.a > 0.f) {
-          const float Dn = D * (1.f - al.a);
-          seen = Dn >= T_EPS && D > 0.5f;
-          D = Dn;
+    int c[4] = {0, 0, 0, 0};        // this lane's instances 32 k + lane
+    if (__any_sync(FULL, D > 0.5f)) {
+      unsigned seen[4];
+      warp_list(geo, slope, (float)bx, (float)by, lane, seen);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        unsigned bits = seen[k];
+        // warp-uniform: bits comes from ballots, the test is a vote
+        while (bits != 0u && __any_sync(FULL, D > 0.5f)) {
+          const int j = __ffs(bits) - 1;
+          bits &= bits - 1u;
+          bool counted = false;
+          if (D > 0.5f) {
+            const int i = 32 * k + j;
+            float alpha;
+            if (staged_alpha(geo[0][i], geo[1][i], px, py, alpha)) {
+              const float Dn = D * (1.f - alpha);
+              counted = Dn >= T_EPS;
+              D = Dn;
+            }
+          }
+          const int n = __popc(__ballot_sync(FULL, counted));
+          if (lane == j) c[k] = n;
         }
       }
-      const unsigned bits = __ballot_sync(FULL, seen);
-      if (lane == 0) cnt[warp][i] = __popc(bits);
     }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cnt[warp][32 * k + lane] = c[k];
     __syncthreads();
     if (p < CHUNK) {
-      int c = 0;
+      int s = 0;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) c += cnt[w][p];
-      obs[base + p] = (float)c;
+      for (int w = 0; w < WARPS; ++w) s += cnt[w][p];
+      if (s != 0) obs[base + p] = (float)s;
     }
   }
 }
@@ -365,6 +404,12 @@ int gssr_blend_pgsr_bwd_v1(const float* attrs, long long n_inst,
 // bytes (none) and resident blocks per SM
 int gssr_blend_pgsr_fwd_occupancy(int* out, void* stream) {
   return static_cast<int>(occupancy(blend_pgsr_fwd_kernel, 0, out));
+}
+
+// out[4]: blend_pgsr_obs_kernel's registers, local bytes, dynamic shared
+// bytes (none) and resident blocks per SM
+int gssr_blend_pgsr_obs_occupancy(int* out, void* stream) {
+  return static_cast<int>(occupancy(blend_pgsr_obs_kernel, 0, out));
 }
 
 // out[4]: blend_pgsr_bwd_kernel's registers, local bytes, dynamic shared

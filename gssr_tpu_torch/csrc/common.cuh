@@ -1,10 +1,11 @@
 // Shared by the blend kernels of csrc/: the tile and chunk geometry, the
 // alpha and transmittance thresholds of every blend, the staging of one
 // chunk's attribute rows in shared memory, the gaussian alpha of the
-// vanilla and planar blends, the forward of both with its alpha cull
-// (gauss_fwd_tile), the warp reduce-scatter of the backwards, the
-// occupancy report, and the error string of the C interface. Each source
-// includes it once and builds into its own library.
+// vanilla and planar blends, the staging and per-warp instance lists of
+// their alpha cull, the forward of both (gauss_fwd_tile), the warp
+// reduce-scatter of the backwards, the occupancy report, and the error
+// string of the C interface. Each source includes it once and builds into
+// its own library.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -174,24 +175,69 @@ __device__ __forceinline__ bool block_culled(float4 a, float4 b, float2 r,
   return (b.z == -INFINITY) | (q - CULL_REL * E > b.z);
 }
 
+// Stage instance j of the chunk at `base` for the culling walks: its
+// geometry and cull inputs (cull_gauss) as float4s, its edge slopes as a
+// float2. One thread per instance.
+__device__ __forceinline__ void stage_cull(float4 (*geo)[CHUNK],
+                                           float2* slope,
+                                           const float* __restrict__ attrs,
+                                           long long n_inst, long long base,
+                                           int j) {
+  const float* a = attrs + base + j;
+  const CullGauss g = cull_gauss(a[MX * n_inst], a[MY * n_inst],
+                                 a[CXX * n_inst], a[CXY * n_inst],
+                                 a[CYY * n_inst], a[OP * n_inst]);
+  geo[0][j] = g.a;
+  geo[1][j] = g.b;
+  slope[j] = g.r;
+}
+
+// The warp's list of the staged chunk: bit j of seen[k] is set where
+// instance 32 k + j is not culled whole for the 8 x 4 block at (bx, by)
+// (block_culled). Each lane tests 4 instances; 4 ballots.
+__device__ __forceinline__ void warp_list(const float4 (*geo)[CHUNK],
+                                          const float2* slope, float bx,
+                                          float by, int lane,
+                                          unsigned (&seen)[4]) {
+  static_assert(CHUNK == 4 * 32, "a lane tests 4 instances");
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = 32 * k + lane;
+    seen[k] = __ballot_sync(FULL, !block_culled(geo[0][i], geo[1][i],
+                                                slope[i], bx, by));
+  }
+}
+
+// whether a staged instance (geo a, b) passes the blend's gates at pixel
+// (px, py), power <= 0 and alpha >= 1/255, with its alpha there in
+// `alpha`: chunk_alpha's roundings on the staged floats. (The gate stays
+// a branch for the caller: a select of alpha or 0 adds two instructions
+// to the forwards' walk.)
+__device__ __forceinline__ bool staged_alpha(float4 a, float4 b, float px,
+                                             float py, float& alpha) {
+  float dx, dy;
+  const float power = gauss_power(a.x, a.y, a.z, a.w, b.x, px, py, dx, dy);
+  alpha = fminf(ALPHA_MAX, b.y * expf(power));
+  return power <= 0.f && alpha >= ALPHA_MIN;
+}
+
 // The forward of the vanilla (NCH = 3: rgb) and planar (NCH = 7: rgb,
 // normal, distance) blends for one 16 x 16 tile: per pixel the NCH
 // channel sums of rows GEOM_ROWS.. and final_T, written as NCH + 1
 // floats. Warp w covers the 8 x 4 block (w % 2, w / 2) of the tile. Per
 // chunk, threads 0-127 stage instance p's geometry and cull inputs
-// (cull_gauss) and threads 128-255 its channels, as float4; then each lane
-// tests 4 instances against its warp's block (block_culled) and 4 ballots
-// give the warp its list of instances that some pixel of the block may
-// see. The warp walks only those, in ascending order (depth order), with
-// __ffs, each lane until its D < T_EPS. A skipped pair has alpha 0 and
-// changes nothing, so the result is that of the walk over every instance,
-// bit for bit.
+// (stage_cull) and threads 128-255 its channels, as float4; then each
+// lane tests 4 instances against its warp's block and 4 ballots give the
+// warp its list of instances that some pixel of the block may see
+// (warp_list). The warp walks only those, in ascending order (depth
+// order), with __ffs, each lane until its D < T_EPS. A skipped pair has
+// alpha 0 and changes nothing, so the result is that of the walk over
+// every instance, bit for bit.
 template <int NCH>
 __device__ __forceinline__ void gauss_fwd_tile(
     const float* __restrict__ attrs, long long n_inst,
     const int* __restrict__ ranges, int tiles_x, float* __restrict__ out) {
-  static_assert(CHUNK == 4 * 32 && 2 * CHUNK == PIX,
-                "a lane tests 4 instances; two threads stage one");
+  static_assert(2 * CHUNK == PIX, "two threads stage one instance");
   static_assert((NCH + 1) % 4 == 0, "the channels and T fill float4s");
   constexpr int NC4 = (NCH + 1) / 4;
   __shared__ float4 geo[2][CHUNK];
@@ -213,13 +259,7 @@ __device__ __forceinline__ void gauss_fwd_tile(
     // also the barrier before the staging buffers are overwritten
     if (!__syncthreads_or(D >= T_EPS)) break;
     if (p < CHUNK) {
-      const float* a = attrs + base + p;
-      const CullGauss g = cull_gauss(a[MX * n_inst], a[MY * n_inst],
-                                     a[CXX * n_inst], a[CXY * n_inst],
-                                     a[CYY * n_inst], a[OP * n_inst]);
-      geo[0][p] = g.a;
-      geo[1][p] = g.b;
-      slope[p] = g.r;
+      stage_cull(geo, slope, attrs, n_inst, base, p);
     } else {
       const float* a = attrs + base + (p - CHUNK);
       float c[4 * NC4];
@@ -233,27 +273,15 @@ __device__ __forceinline__ void gauss_fwd_tile(
     }
     __syncthreads();
     unsigned seen[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int i = 32 * k + lane;
-      seen[k] = __ballot_sync(FULL, !block_culled(geo[0][i], geo[1][i],
-                                                  slope[i], (float)bx,
-                                                  (float)by));
-    }
+    warp_list(geo, slope, (float)bx, (float)by, lane, seen);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       unsigned bits = seen[k];
       while (bits != 0u && D >= T_EPS) {
         const int i = 32 * k + __ffs(bits) - 1;
         bits &= bits - 1u;
-        const float4 a = geo[0][i], b = geo[1][i];
-        float dx, dy;
-        const float power = gauss_power(a.x, a.y, a.z, a.w, b.x, px, py, dx,
-                                        dy);
-        const float g = expf(power);
-        const float raw = b.y * g;
-        const float alpha = fminf(ALPHA_MAX, raw);
-        if (!(power <= 0.f && alpha >= ALPHA_MIN)) continue;
+        float alpha;
+        if (!staged_alpha(geo[0][i], geo[1][i], px, py, alpha)) continue;
         const float one_m = 1.f - alpha;
         const float Dn = D * one_m;
         if (Dn >= T_EPS) {

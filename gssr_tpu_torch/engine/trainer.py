@@ -6,8 +6,9 @@ gaussian + checkpoint persistence, resume. Metrics reach the host every
 point is also kept in `history` with its host time.
 
 Checkpoints are .npz files with the state leaves in gssr_tpu's order
-(`leaf_i`, see models/convert.py) plus the scene's aux arrays
-(`aux_i`), so a gssr_tpu checkpoint loads into the port.
+(`leaf_i`, see models/convert.py; the scene converts its own state) plus
+the scene's aux arrays (`aux_i`), so a gssr_tpu checkpoint loads into the
+port.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ import numpy as np
 
 from gssr_tpu_torch.configs.base import Config
 from gssr_tpu_torch.engine.callbacks import TrainingCallbackLocation
-from gssr_tpu_torch.models.convert import state_from_numpy, state_to_numpy
 
 
 class Trainer:
@@ -31,8 +31,8 @@ class Trainer:
         self.scene = scene
         self.start_step = 0
         self.callbacks = []
-        # (step, loss, num_rendered, host seconds, {loss term: value}) at
-        # every log point
+        # (step, loss, num_rendered, host seconds, {loss term or n_ count:
+        # value}) at every log point
         self.history = []
         self.evals = {}               # step -> evaluate() metrics
 
@@ -67,7 +67,7 @@ class Trainer:
             if step % log_interval == 0:
                 loss = float(metrics["loss"])
                 terms = {k: float(v) for k, v in metrics.items()
-                         if k.endswith("_loss")}
+                         if k.endswith("_loss") or k.startswith("n_")}
                 self.history.append((step, loss, int(metrics["num_rendered"]),
                                      time.perf_counter(), terms))
                 ema_loss = loss if ema_loss is None else \
@@ -108,9 +108,9 @@ class Trainer:
     def save_checkpoint(self, state, step: int):
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         path = self.ckpt_dir / f"ckpt_{step:07d}.npz"
+        leaves = self.scene.state_to_numpy(state)
         np.savez(path, step=step,
-                 **{f"leaf_{i}": a
-                    for i, a in enumerate(state_to_numpy(state))},
+                 **{f"leaf_{i}": a for i, a in enumerate(leaves)},
                  **{f"aux_{i}": a
                     for i, a in enumerate(self.scene.aux_arrays())})
         if self.config.trainer.save_only_latest_checkpoint:
@@ -131,8 +131,8 @@ class Trainer:
         with np.load(path) as data:
             self.start_step = int(data["step"])
             n = len([k for k in data.files if k.startswith("leaf_")])
-            self.scene.state = state_from_numpy(
-                [data[f"leaf_{i}"] for i in range(n)], self.device)
+            self.scene.state = self.scene.state_from_numpy(
+                [data[f"leaf_{i}"] for i in range(n)])
             n_aux = len([k for k in data.files if k.startswith("aux_")])
             if n_aux:
                 self.scene.restore_aux([data[f"aux_{i}"]

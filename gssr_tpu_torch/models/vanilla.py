@@ -72,6 +72,38 @@ def _zeros_like(d):
     return {k: torch.zeros_like(v) for k, v in d.items()}
 
 
+@dataclasses.dataclass
+class Adam:
+    """Adam's moments over a dict of parameters and its step count."""
+    m: Dict[str, torch.Tensor]
+    v: Dict[str, torch.Tensor]
+    count: torch.Tensor                # [] int32
+
+    @classmethod
+    def zeros(cls, params) -> "Adam":
+        dev = next(iter(params.values())).device
+        return cls(_zeros_like(params), _zeros_like(params),
+                   torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def adam_update(params, grads, adam: Adam, lrs, b1=0.9, b2=0.999,
+                eps=1e-15):
+    """Per-group Adam over dicts of tensors (eps 1e-15 as in the reference
+    trainer). A group with lr 0 keeps its value while its moments advance.
+    Returns (new params, new Adam)."""
+    count = adam.count + 1
+    t = count.float()
+    bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+    new_p, ms, vs = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k]
+        m = b1 * adam.m[k] + (1 - b1) * g
+        v = b2 * adam.v[k] + (1 - b2) * g * g
+        new_p[k] = p - lrs[k] * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        ms[k], vs[k] = m, v
+    return new_p, Adam(ms, vs, count)
+
+
 class VanillaGaussians:
     """Config + static scene info; state-changing operations are pure."""
 
@@ -160,22 +192,13 @@ class VanillaGaussians:
         }
 
     @staticmethod
-    def adam_step(state: GaussianState, grads, lrs, b1=0.9, b2=0.999,
-                  eps=1e-15) -> GaussianState:
-        """Per-group Adam (eps 1e-15 as in the reference trainer)."""
-        count = state.adam_count + 1
-        t = count.float()
-        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
-        params, ms, vs = {}, {}, {}
-        for k in PARAM_NAMES:
-            g = grads[k]
-            m = b1 * state.adam_m[k] + (1 - b1) * g
-            v = b2 * state.adam_v[k] + (1 - b2) * g * g
-            params[k] = state.params[k] - lrs[k] * (m / bc1) / (
-                torch.sqrt(v / bc2) + eps)
-            ms[k], vs[k] = m, v
-        return dataclasses.replace(state, params=params, adam_m=ms,
-                                   adam_v=vs, adam_count=count)
+    def adam_step(state: GaussianState, grads, lrs) -> GaussianState:
+        """Per-group Adam on the state's parameters (adam_update)."""
+        params, adam = adam_update(
+            state.params, grads,
+            Adam(state.adam_m, state.adam_v, state.adam_count), lrs)
+        return dataclasses.replace(state, params=params, adam_m=adam.m,
+                                   adam_v=adam.v, adam_count=adam.count)
 
     # ---------------- densification -----------------------------------
     @staticmethod

@@ -54,6 +54,7 @@ SOURCES = {
         "gssr_blend_pgsr_fwd": _FWD,
         "gssr_blend_pgsr_fwd_occupancy": (_P,),
         "gssr_blend_pgsr_obs": _FWD,
+        "gssr_blend_pgsr_obs_occupancy": (_P,),
         "gssr_blend_pgsr_bwd": _BWD,
         "gssr_blend_pgsr_bwd_v1": _BWD,
         "gssr_blend_pgsr_bwd_occupancy": (_P,),

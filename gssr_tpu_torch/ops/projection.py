@@ -166,11 +166,13 @@ def opacity_sigma_factor(opacity, visible):
 
 
 def preprocess(means3d, scales, rotations, camera, width: int, height: int,
-               opacity, scaling_modifier: float = 1.0,
+               opacity=None, scaling_modifier: float = 1.0,
                active_mask=None) -> Projected:
     """Vanilla-3DGS preprocess. width/height are the tile-padded image size;
     camera is a CameraArrays; opacity (activated, [N]) tightens the tile
-    rect to the visible level set."""
+    rect to the visible level set. Without it (the anchor models'
+    visibility prefilter) the radius and rect are the fixed 3 sigma and
+    the intersect cutoff is 3^2 / 2, as in the reference."""
     tiles_x, tiles_y = width // TILE, height // TILE
     cov3d = build_covariance(scales, rotations, scaling_modifier)
 
@@ -191,7 +193,10 @@ def preprocess(means3d, scales, rotations, camera, width: int, height: int,
                          cov2d[..., 0] * inv_det], dim=-1)
     conic = torch.where(visible[..., None], conic, torch.zeros_like(conic))
 
-    s_fac, visible = opacity_sigma_factor(opacity, visible)
+    if opacity is None:
+        s_fac = 3.0
+    else:
+        s_fac, visible = opacity_sigma_factor(opacity, visible)
     mid = 0.5 * (cov2d[..., 0] + cov2d[..., 2])
     disc = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     radius_f = torch.ceil(s_fac * torch.sqrt(torch.clamp(mid + disc,
@@ -210,8 +215,11 @@ def preprocess(means3d, scales, rotations, camera, width: int, height: int,
                      tiles_y, torch.where(visible, ry, zero).detach())
     # the intersect test's cutoff is the kernel's own uncapped alpha cut
     # (power <= ln(255*op)), so culled rect tiles hold no visible pixel
-    cutoff = torch.log(torch.clamp(opacity.detach().reshape(-1) * 255.0,
-                                   min=1.0 + 1e-6))
+    if opacity is None:
+        cutoff = torch.full_like(depth, 0.5 * 3.0 * 3.0).detach()
+    else:
+        cutoff = torch.log(torch.clamp(
+            opacity.detach().reshape(-1) * 255.0, min=1.0 + 1e-6))
     mask, exact = tile_intersect_mask(m2d, conic.detach(), rect, cutoff,
                                       visible)
     tiles = (rect[..., 2] - rect[..., 0]) * (rect[..., 3] - rect[..., 1])

@@ -295,6 +295,16 @@ class PGSRScene(VanillaScene):
             generator=self.generator, noise=noise)
         return state
 
+    @torch.no_grad()
+    def eval_render(self, state: GaussianState, camera, step: int):
+        """The vanilla eval render through the planar blend. Nothing reads
+        an eval or mesh render's observe counts, so it launches no observe
+        kernel."""
+        return self.render_params(
+            state.params, camera.arrays(self.device),
+            self.gaussians.active_sh_degree(step), state.active,
+            self.background, forward_observe=False)
+
     def load_gaussians(self, path: str) -> GaussianState:
         state = super().load_gaussians(path)
         self.extra_stats = self.gaussians.init_extra_stats(

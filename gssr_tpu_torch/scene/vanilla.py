@@ -22,6 +22,7 @@ import torch
 from gssr_tpu_torch.cameras import Camera
 from gssr_tpu_torch.configs.base import DataLoaderConfig
 from gssr_tpu_torch.dataio.dataset import ColmapDataLoader
+from gssr_tpu_torch.models.convert import state_from_numpy, state_to_numpy
 from gssr_tpu_torch.models.vanilla import (
     PARAM_NAMES,
     GaussianState,
@@ -200,6 +201,13 @@ class VanillaScene:
             words = np.asarray(rng, np.uint64).ravel()
             self.generator.manual_seed(int(words[0]) << 32 | int(words[-1]))
         self.dataloader.restore_sampler(int(draws))
+
+    def state_to_numpy(self, state: GaussianState) -> List[np.ndarray]:
+        """The state's leaves in gssr_tpu's checkpoint order."""
+        return state_to_numpy(state)
+
+    def state_from_numpy(self, leaves) -> GaussianState:
+        return state_from_numpy(leaves, self.device)
 
     def save_gaussians(self, state: GaussianState, path: str):
         self.gaussians.save_ply(state, path)

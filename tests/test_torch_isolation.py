@@ -25,9 +25,11 @@ for must in ("ops.blend", "ops.blend2d", "ops.projection2d", "ops.rasterize2d",
              "ops.sampling", "models.twod", "scene.twodgs", "utils.tsdf",
              "utils.mtet", "utils.mesh_eval", "utils.mesh_extract",
              "extract_mesh", "ops.blend_pgsr", "ops.rasterize_pgsr",
-             "models.pgsr", "scene.pgsr", "dataio.view_selection"):
+             "models.pgsr", "scene.pgsr", "dataio.view_selection",
+             "ops.voxel", "models.scaffold", "models.interop",
+             "scene.scaffold"):
     assert "gssr_tpu_torch." + must in names, (must, names)
-assert len(names) >= 46, names
+assert len(names) >= 50, names
 print(len(names))
 """
 
