@@ -41,28 +41,36 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
             rendered by the port from a separate random gaussian set):
-            `python -m gssr_tpu_torch.train 3dgs`, then `... 2dgs`, then
-            `... pgsr` with its two-camera step after step MULTI_VIEW_FROM,
-            then `... scaffold-gs` at the preset's full width (feat_dim 32,
-            10 offsets, appearance_dim 32; statistics from step 3), STEPS
-            steps each with two densify passes (the first three paths with
-            SH degree 3). Asserts finite losses, image losses that fall, a
-            changed n_active, the written PLY (scaffold-gs: also its
-            _mlp.npz and checkpoints.pth), and that every train render
-            launched the path's forward and backward kernels (two renders on
-            a multi-view step) and no render launched a *_v1 backward; for
-            pgsr also ring neighbours and no camera its own, and geo and NCC
-            losses above 0 on every multi-view step; for scaffold-gs a
-            scaling loss above 0 at every step. Prints the median step (for
-            pgsr also single- and multi-view apart), its tail, Mpix/s, peak
-            memory; for scaffold-gs the anchors grown and pruned at each
-            adjust_anchor and the visible anchors and neural gaussians per
-            render.
+            `python -m gssr_tpu_torch.train 3dgs`, then `... 2dgs`, `...
+            pgsr` (its two-camera step after step MULTI_VIEW_FROM), and the
+            six anchor methods at their presets' full width (feat_dim 32,
+            10 offsets, appearance_dim 32, octree 0): `scaffold-gs`,
+            `octree-gs`, `scaffold-2dgs`, `octree-2dgs`, `scaffold-pgsr` and
+            `octree-pgsr` (statistics from step 3; the octree ones with 4
+            levels; the planar ones two-camera after MULTI_VIEW_FROM).
+            STEPS steps each with two densify passes (the first three paths
+            with SH degree 3). Asserts finite losses, image losses that
+            fall, a changed n_active, the written PLY (anchor paths: also
+            the _mlp.npz and checkpoints.pth), and that every train render
+            launched the path's forward and backward kernels (two renders
+            on a multi-view step) and no render launched a *_v1 kernel or
+            the observe count; for the two-camera paths also ring
+            neighbours and no camera its own, and geo and NCC losses above
+            0 on every multi-view step; for the anchor paths a scaling loss
+            above 0 at every step, and for the octree ones an LOD mask that
+            drops active anchors on some render. Prints the median step
+            (two-camera paths: also single- and multi-view apart), its
+            tail, Mpix/s, peak memory; for the anchor paths the anchors
+            grown and pruned at each adjust_anchor (octree: the active
+            anchors of each level at init and after each pass), the
+            offsets' mean screen gradients against the grow threshold, the
+            visible anchors and neural gaussians per render, and the share
+            of the active anchors the LOD mask drops.
    mesh     `python -m gssr_tpu_torch.extract_mesh` in process: the 2dgs
-            run bounded at a 257^3 grid and unbounded at 128^3, the pgsr run
-            bounded; no render launches the observe kernel. Asserts
-            non-empty meshes; prints their sizes and the seconds of
-            rendering, fusion and marching tetrahedra.
+            run bounded at a 257^3 grid and unbounded at 128^3, the pgsr and
+            octree-2dgs runs bounded; no render launches the observe
+            kernel. Asserts non-empty meshes; prints their sizes and the
+            seconds of rendering, fusion and marching tetrahedra.
 4. report   all seven kernels against their plain versions again, at their
             main path's own inputs (the trained model, one of its cameras):
             the vanilla pair under the cotangent of its loss, the surfel
@@ -81,20 +89,23 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             surfels, where every walking lane skips), from which the
             kernels' bounds charge such pairs only the test that proves
             them zero; for the observe count the same up to each pixel's
-            D <= 0.5 point, where its walk and its bound end. The vanilla
-            pair also runs at the scaffold-gs path's inputs (the neural
-            gaussians decoded for camera 0), printed apart: the
-            {"kernels": [...]} line keeps one row per kernel. With
+            D <= 0.5 point, where its walk and its bound end. The same
+            checks also run at three anchor paths' inputs (the neural
+            gaussians decoded for camera 0), printed apart: the vanilla
+            pair at scaffold-gs's, the surfel pair at octree-2dgs's, the
+            planar kernels at scaffold-pgsr's; the {"kernels": [...]} line
+            keeps one row per kernel. With
             --yardstick, the vanilla and planar forwards and the observe
             count must equal DIR's bit for bit, are timed in turns with
             them (DIR, new, new, DIR) and their rows gain "parent_ms".
             Prints the {"kernels": [...]} line, the card, and last the
             {"ok": true, "device": {...}} line.
 
---profile FILE adds three profiled train steps to each path after phase 3
+--profile FILE adds three profiled train steps to five paths after phase 3
 and writes torch.profiler's per-kernel tables to FILE (3dgs) and to FILE
-with `_2dgs`, `_pgsr` and `_scaffold` before its suffix; for scaffold-gs it
-also prints the step's stages (scene/scaffold.py's profiler ranges).
+with `_2dgs`, `_pgsr`, `_scaffold` and `_octree2dgs` before its suffix;
+for the anchor paths it also prints the step's stages
+(scene/scaffold.py's profiler ranges).
 
 --yardstick DIR names a checkout of the parent commit (for example `git
 archive HEAD` unpacked under build/): its vanilla and planar forward
@@ -177,12 +188,23 @@ MULTI_VIEW_FROM = 16
 MESH_RUNS = (("bounded", ["--depth-trunc", "6.0", "--voxel-size", "0.0234",
                           "--sdf-trunc", "0.08"]),
              ("unbounded", ["--unbounded", "--resolution", "128"]))
-MESH_METHODS = {"2dgs": ("bounded", "unbounded"), "pgsr": ("bounded",)}
+MESH_METHODS = {"2dgs": ("bounded", "unbounded"), "pgsr": ("bounded",),
+                "octree-2dgs": ("bounded",)}
 # the kernels each main path must launch at every render of a train step
-PATH_KERNELS = {"3dgs": ("blend_fwd", "blend_bwd"),
-                "2dgs": ("blend2d_fwd", "blend2d_bwd"),
-                "pgsr": ("blend_pgsr_fwd", "blend_pgsr_bwd"),
-                "scaffold-gs": ("blend_fwd", "blend_bwd")}
+VANILLA_PAIR = ("blend_fwd", "blend_bwd")
+SURFEL_PAIR = ("blend2d_fwd", "blend2d_bwd")
+PLANAR_PAIR = ("blend_pgsr_fwd", "blend_pgsr_bwd")
+PATH_KERNELS = {"3dgs": VANILLA_PAIR, "2dgs": SURFEL_PAIR,
+                "pgsr": PLANAR_PAIR, "scaffold-gs": VANILLA_PAIR,
+                "octree-gs": VANILLA_PAIR, "scaffold-2dgs": SURFEL_PAIR,
+                "octree-2dgs": SURFEL_PAIR, "scaffold-pgsr": PLANAR_PAIR,
+                "octree-pgsr": PLANAR_PAIR}
+# the anchor paths (scaffold and octree), the octree ones, and the paths
+# with PGSR's two-camera step, in the order phase 3 trains them
+ANCHOR_METHODS = ("scaffold-gs", "octree-gs", "scaffold-2dgs", "octree-2dgs",
+                  "scaffold-pgsr", "octree-pgsr")
+OCTREE_METHODS = ("octree-gs", "octree-2dgs", "octree-pgsr")
+MULTI_VIEW_METHODS = ("pgsr", "scaffold-pgsr", "octree-pgsr")
 # the first designs of the redesigned kernels, kept as the yardstick of the
 # current ones: no render may launch them
 V1_KERNELS = ("blend_bwd_v1", "blend2d_fwd_v1", "blend2d_bwd_v1",
@@ -203,14 +225,28 @@ YARDSTICK = {"blend_fwd": ("gssr_blend_fwd", 4),
              "blend_pgsr_fwd": ("gssr_blend_pgsr_fwd", 8),
              "blend_pgsr_obs": ("gssr_blend_pgsr_obs", None)}
 # each path's options beyond the common ones: SH degree 3 from step 15
-# (the scaffold model has no SH); scaffold-gs gathers its statistics from
-# step 3, so that adjust_anchor after steps 20 and 30 has offsets and
-# anchors seen often enough to grow and prune
+# (the anchor models have no SH); the anchor paths gather their
+# statistics from step 3, so that adjust_anchor after steps 20 and 30 has
+# offsets and anchors seen often enough to grow and prune; the octree
+# paths take 4 levels (the preset's derived 2 keep only level 0 after the
+# weed-out on this scene, so no LOD mask would drop an anchor); the
+# surfel anchor paths grow offsets from a mean screen gradient of 5e-6
+# (the surfel render moves an offset's screen position only through its
+# low-pass term: at 1600x1056 no offset reaches the preset's 2e-4, whose
+# 99.9th percentile is ~5e-6, so no anchor would grow); the two-camera
+# paths switch at MULTI_VIEW_FROM
 SH_ARGS = ["--scene.gaussians.oneup-sh-interval", "5"]
+ANCHOR_ARGS = ["--scene.gaussians.start-stat", "2"]
+OCTREE_ARGS = ANCHOR_ARGS + ["--scene.gaussians.levels", "4"]
+SURFEL_GROW_ARGS = ["--scene.gaussians.densify-grad-threshold", "5e-6"]
+MULTI_VIEW_ARGS = ["--scene.multi-view-from", str(MULTI_VIEW_FROM)]
 METHOD_ARGS = {"3dgs": SH_ARGS, "2dgs": SH_ARGS,
-               "pgsr": SH_ARGS + ["--scene.multi-view-from",
-                                  str(MULTI_VIEW_FROM)],
-               "scaffold-gs": ["--scene.gaussians.start-stat", "2"]}
+               "pgsr": SH_ARGS + MULTI_VIEW_ARGS,
+               "scaffold-gs": ANCHOR_ARGS, "octree-gs": OCTREE_ARGS,
+               "scaffold-2dgs": ANCHOR_ARGS + SURFEL_GROW_ARGS,
+               "octree-2dgs": OCTREE_ARGS + SURFEL_GROW_ARGS,
+               "scaffold-pgsr": ANCHOR_ARGS + MULTI_VIEW_ARGS,
+               "octree-pgsr": OCTREE_ARGS + MULTI_VIEW_ARGS}
 
 
 def card() -> str:
@@ -834,7 +870,10 @@ def phase_train(dev, root, card_line, method):
         "--scene.gaussians.densify-from-iter", "10",
         "--scene.gaussians.densification-interval", "10",
         *METHOD_ARGS[method]])
+    # the earlier paths' models stay on the card: a path's own peak is the
+    # peak above what was allocated when it started
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     trainer = train.main(config)
@@ -858,9 +897,9 @@ def phase_train(dev, root, card_line, method):
     tag = f"[train {method}]"
     saved = config.get_gaussian_dir() / f"iteration_{STEPS}"
     files = ["point_cloud.ply"]
-    if method == "scaffold-gs":
+    if method in ANCHOR_METHODS:
         files += ["point_cloud_mlp.npz", "checkpoints.pth"]
-        n0 = scaffold_lines(tag, scene, hist)
+        n0 = anchor_lines(tag, scene, hist)
     else:
         assert scene.gaussians.active_sh_degree(STEPS) == 3
         n0 = min(N_POINTS, state.active.shape[0])
@@ -870,7 +909,7 @@ def phase_train(dev, root, card_line, method):
     renders = STEPS
     # step time: from one log point to the next, so from step 3 on
     step_ms = {b[0]: 1e3 * (b[3] - a[3]) for a, b in zip(hist[1:], hist[2:])}
-    if method == "pgsr":
+    if method in MULTI_VIEW_METHODS:
         assert_ring_neighbours(scene.dataloader.train_cameras)
         multi = [h[4] for h in hist if h[0] > MULTI_VIEW_FROM]
         assert all("geo_loss" not in h[4] for h in hist
@@ -888,30 +927,55 @@ def phase_train(dev, root, card_line, method):
     for k in PATH_KERNELS[method]:
         assert launches[k] >= renders, \
             f"{k} launched {launches[k]} times in {renders} train renders"
-    assert all(launches[k] == 0 for k in V1_KERNELS), launches
+    # no render reads an observe count, and none runs a yardstick kernel
+    assert all(launches[k] == 0 for k in V1_KERNELS + ("blend_pgsr_obs",)), \
+        launches
     psnr = trainer.evals[STEPS]["eval_psnr"]
     print(f"{tag} {STEPS} steps in {wall:.1f} s (eval and save included); "
           f"L1 + D-SSIM loss epoch 1 {first:.5f} -> epoch "
           f"{last_epoch // N_CAMS} {last:.5f}")
+    peak = torch.cuda.max_memory_allocated()
     print(f"{tag} n_active {n0} -> {int(state.n_active)} of capacity "
           f"{state.active.shape[0]}; launches {launches}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above "
+          f"the earlier paths' {held / 2**30:.2f} GiB")
     print(f"{tag} {step_line(step_ms.values())}, num_rendered {hist[-1][2]}, "
           f"eval PSNR {psnr:.3f} dB  | {card_line}", flush=True)
     return trainer, launches
 
 
-def scaffold_lines(tag, scene, hist) -> int:
-    """The scaffold path's own checks and prints: a scaling loss above 0
-    at every step, anchors grown and pruned at each adjust_anchor, and
-    the visible anchors and decoded neural gaussians per train render.
-    Returns the anchor count before the first adjust_anchor."""
+def anchor_lines(tag, scene, hist) -> int:
+    """An anchor path's own checks and prints: a scaling loss above 0 at
+    every step, the anchors grown and pruned at each adjust_anchor (for
+    the octree paths also the active anchors of each level, at init and
+    after each pass), and the visible anchors and decoded neural gaussians
+    per train render; on an octree path the LOD mask must drop an active
+    anchor on some render, and its share is printed. Returns the anchor
+    count before the first adjust_anchor."""
     assert all(h[4]["scaling_loss"] > 0 for h in hist)
     log = scene.anchor_log
     assert [e[0] for e in log] == [20, 30], log
-    for step, grown, pruned, n_after in log:
+    octree = hasattr(scene, "init_level_counts")
+    if octree:
+        print(f"{tag} active anchors by level at init: "
+              f"{scene.init_level_counts}")
+    for step, grown, pruned, n_after, *levels in log:
         print(f"{tag} adjust_anchor after step {step}: {grown} anchors "
-              f"grown, {pruned} pruned, {n_after} active")
+              f"grown, {pruned} pruned, {n_after} active"
+              + (f"; by level {levels[0]}" if levels else ""))
+    _, grown, pruned, n_after = log[0][:4]
+    n0 = n_after - grown + pruned
+    # the offsets' mean screen gradients since the last pass (steps 31-32),
+    # against the threshold of the first growing level
+    st = scene.state.stats
+    seen = st["offset_denom"] > 0
+    grads = (st["offset_grad_accum"][seen] / st["offset_denom"][seen]).float()
+    q = torch.quantile(grads[:1 << 24].cpu(),
+                       torch.tensor([0.5, 0.99, 0.999])).tolist()
+    print(f"{tag} offsets' mean screen gradient over steps 31-32: median "
+          f"{q[0]:.3g}, p99 {q[1]:.3g}, p99.9 {q[2]:.3g}, max "
+          f"{float(grads.max()):.3g} (threshold "
+          f"{scene.config.gaussians.densify_grad_threshold:.3g})")
     vis = sorted(h[4]["n_visible"] for h in hist)
     neural = sorted(h[4]["n_neural"] for h in hist)
     print(f"{tag} per train render: visible anchors median "
@@ -919,8 +983,17 @@ def scaffold_lines(tag, scene, hist) -> int:
           f"rendered neural gaussians median {statistics.median(neural):.0f} "
           f"({neural[0]:.0f}-{neural[-1]:.0f}) of "
           f"{scene.config.gaussians.n_offsets} per visible anchor")
-    _, grown, pruned, n_after = log[0]
-    return n_after - grown + pruned
+    if octree:
+        # the active anchors at each step: n0 until the first pass
+        def active_at(step):
+            return ([n0] + [e[3] for e in log if e[0] < step])[-1]
+        share = sorted(100 * h[4]["n_lod_dropped"] / active_at(h[0])
+                       for h in hist)
+        assert share[-1] > 0, "the LOD mask dropped no active anchor"
+        print(f"{tag} the LOD mask drops median {statistics.median(share):.2f}"
+              f" % ({share[0]:.2f}-{share[-1]:.2f} %) of the active anchors "
+              f"per train render")
+    return n0
 
 
 def phase_mesh(trainer, card_line):
@@ -1239,19 +1312,42 @@ def phase_report(trainer, launches, dev, parent=None):
                         launches, parent)
 
 
+@torch.no_grad()
+def decoded_camera0(scene, state, dev, camera_index=0):
+    """The neural gaussians that an anchor path's trained anchors and MLP
+    decode for one of its cameras (its train render's visible anchors and
+    level gate): (host camera, its CameraArrays, the NeuralGaussians, the
+    visible mask)."""
+    cam_h = scene.dataloader.train_cameras[camera_index]
+    cam = cam_h.arrays(dev)
+    visible, gate, _ = scene.visible_anchors(state, cam, STEPS)
+    ng = scene.gaussians.decode(state.anchors, state.mlp, cam.campos,
+                                cam_h.uid, visible, state.active,
+                                level_scale_gate=gate)
+    return cam_h, cam, ng, visible
+
+
+def print_rows(tag, rows, card_line):
+    """Report rows printed apart: the {"kernels": [...]} line keeps one row
+    per kernel, at its own path's inputs."""
+    for row in rows:
+        base = row.get("v1_ms", row.get("parent_ms"))
+        print(f"{tag} {row['name']}: max|err| {row['max_abs_err']:.3e}, "
+              f"{row['ms']:.4f} ms"
+              + (f" (v1 {base:.4f} ms)" if base is not None else "")
+              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"plain {row['plain_ms']:.1f} ms, {row['launches']} launches "
+              f"on the path  | {card_line}", flush=True)
+
+
 def phase_report_scaffold(trainer, launches, dev, card_line):
     """The vanilla pair at the scaffold-gs path's own inputs: the neural
     gaussians that the trained anchors and MLP decode for camera 0. Its
     numbers are printed here; the {"kernels": [...]} line keeps the 3dgs
     path's rows of the same two kernels."""
     scene, state = trainer.scene, trainer.scene.state
-    cam_h = scene.dataloader.train_cameras[0]
-    cam = cam_h.arrays(dev)
+    cam_h, cam, ng, visible = decoded_camera0(scene, state, dev)
     with torch.no_grad():
-        visible, gate = scene.visible_anchors(state, cam, STEPS)
-        ng = scene.gaussians.decode(state.anchors, state.mlp, cam.campos,
-                                    cam_h.uid, visible, state.active,
-                                    level_scale_gate=gate)
         inputs = blend_inputs(ng.xyz, ng.scaling, ng.rotation, ng.opacity,
                               ng.color, cam, scene.width, scene.height,
                               active=ng.mask)
@@ -1259,12 +1355,8 @@ def phase_report_scaffold(trainer, launches, dev, card_line):
     print(f"{tag} camera 0: {int(visible.sum())} visible anchors of "
           f"{int(state.n_active)}, {int(ng.mask.sum())} of "
           f"{ng.mask.shape[0]} neural gaussians with opacity > 0")
-    for row in vanilla_pair(tag, scene, cam_h, cam, inputs, launches):
-        print(f"{tag} {row['name']}: max|err| {row['max_abs_err']:.3e}, "
-              f"{row['ms']:.4f} ms (v1 {row.get('v1_ms', float('nan')):.4f} "
-              f"ms), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"plain {row['plain_ms']:.1f} ms, {row['launches']} launches "
-              f"on the path  | {card_line}", flush=True)
+    print_rows(tag, vanilla_pair(tag, scene, cam_h, cam, inputs, launches),
+               card_line)
 
 
 def vanilla_pair(tag, scene, cam_h, cam, inputs, launches, parent=None):
@@ -1330,15 +1422,8 @@ def vanilla_pair(tag, scene, cam_h, cam, inputs, launches, parent=None):
 
 def phase_report2d(trainer, launches, dev):
     """Both surfel kernels against their plain versions at the 2dgs path's
-    own inputs, under the cotangent of the 2dgs loss with both
-    regularisers live (past step 7000, lambda_dist 1000, depth_ratio 0.5)
-    plus a random one on median_normal, each channel group scaled to a
-    largest entry of 1."""
-    import dataclasses
-    from types import SimpleNamespace
-
-    from gssr_tpu_torch.ops import blend2d as B
-    from gssr_tpu_torch.ops.rasterize2d import surfel_outputs
+    own inputs (the trained model, camera 0): their rows of the
+    {"kernels": [...]} line."""
     from gssr_tpu_torch.ops.sh import sh_to_color
     scene, state = trainer.scene, trainer.scene.state
     g, p = scene.gaussians, state.params
@@ -1346,10 +1431,48 @@ def phase_report2d(trainer, launches, dev):
     cam = cam_h.arrays(dev)
     with torch.no_grad():
         color = sh_to_color(3, g.get_features(p), p["xyz"], cam.campos)
-        attrs, ranges, tx, ty = blend2d_inputs(
+        inputs = blend2d_inputs(
             p["xyz"], g.get_scaling(p), g.get_rotation(p),
             g.get_opacity(p)[:, 0], color, cam, scene.width, scene.height,
             active=state.active)
+    return surfel_pair("[report 2dgs]", scene, cam_h, cam, inputs, launches)
+
+
+def phase_report_octree2d(trainer, launches, dev, card_line):
+    """Both surfel kernels at the octree-2dgs path's own inputs: the
+    neural gaussians that its trained anchors and MLP decode for camera 0
+    through its LOD mask, as surfels (their first two scales). Printed
+    apart."""
+    scene, state = trainer.scene, trainer.scene.state
+    cam_h, cam, ng, visible = decoded_camera0(scene, state, dev)
+    with torch.no_grad():
+        inputs = blend2d_inputs(ng.xyz, ng.scaling[:, :2], ng.rotation,
+                                ng.opacity, ng.color, cam, scene.width,
+                                scene.height, active=ng.mask)
+    tag = "[report octree-2dgs]"
+    print(f"{tag} camera 0: {int(visible.sum())} visible anchors of "
+          f"{int(state.n_active)}, {int(ng.mask.sum())} of "
+          f"{ng.mask.shape[0]} neural gaussians with opacity > 0")
+    print_rows(tag, surfel_pair(tag, scene, cam_h, cam, inputs, launches),
+               card_line)
+
+
+def surfel_pair(tag, scene, cam_h, cam, inputs, launches):
+    """Both surfel kernels against their plain versions on `inputs`
+    (blend2d_inputs' tuple, from camera cam_h of `scene`), under the
+    cotangent of the scene's image loss plus the 2DGS regularisers, both
+    live (past step 7000, lambda_dist 1000, depth_ratio 0.5), plus a
+    random one on median_normal, each channel group scaled to a largest
+    entry of 1; the forward and backward also against their v1 kernels,
+    bit for bit, and timed in turns with them. Prints the cull shares;
+    returns the two report rows."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from gssr_tpu_torch.ops import blend2d as B
+    from gssr_tpu_torch.ops.rasterize2d import surfel_outputs
+    from gssr_tpu_torch.scene.twodgs import surfel_reg_losses
+    attrs, ranges, tx, ty = inputs
     fwd = partial(B.blend2d_fwd, attrs, ranges, tx, ty)
     fwd_v1 = partial(B.blend2d_fwd_v1, attrs, ranges, tx, ty)
     out_k = fwd()
@@ -1357,17 +1480,21 @@ def phase_report2d(trainer, launches, dev):
                                                             tx, ty))
     assert_forward_pair(out_k, fwd_v1(), out_p, B.O_SELPOS)
 
-    scene.config = dataclasses.replace(scene.config, lambda_dist=1000.0,
-                                       depth_ratio=0.5)
+    cfg = dataclasses.replace(scene.config, lambda_dist=1000.0,
+                              depth_ratio=0.5)
     f = out_k.clone().requires_grad_(True)
     out = SimpleNamespace(**surfel_outputs(
         B.SurfelMaps(f), cam, scene.width, scene.height, scene.background,
-        scene.config.depth_ratio))
+        cfg.depth_ratio))
+    # the image terms, and the regularisers (the 2dgs scene's loss_terms
+    # holds them, the anchor scenes' extra_losses)
     terms = scene.loss_terms(out, scene.gt_device(cam_h), 7001, cam)
+    terms.update(surfel_reg_losses(out, cam, 7001, cfg.lambda_normal,
+                                   cfg.lambda_dist))
     terms_line = {k: round(float(v.detach()), 6) for k, v in terms.items()}
     assert all(v > 0 for v in terms_line.values()), terms_line
     gen = torch.Generator(device="cpu").manual_seed(3)
-    probe = torch.randn(out.median_normal.shape, generator=gen).to(dev)
+    probe = torch.randn(out.median_normal.shape, generator=gen).to(f.device)
     (cot,) = torch.autograd.grad(
         sum(terms.values()) + (out.median_normal * probe).sum(), f)
     cot[..., list(B.NO_GRAD_ROWS)] = 0.0
@@ -1391,7 +1518,7 @@ def phase_report2d(trainer, launches, dev):
     # 100 x atol while the largest rows' rounding stays inside atol; the
     # per-row comparison above holds each in units of its own largest value
     row_max = d_p[:B.LIVE_ATTRS2].abs().amax(dim=1)
-    print(f"[report 2dgs] largest plain gradient per live row: "
+    print(f"{tag} largest plain gradient per live row: "
           f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
           f"{int((row_max > 100 * BWD_TOL['atol']).sum())} of "
           f"{B.LIVE_ATTRS2} rows above 100 x atol; v1 max|err| "
@@ -1400,7 +1527,7 @@ def phase_report2d(trainer, launches, dev):
     pairs, contrib = B.blend2d_pair_count(attrs, ranges, tx, ty)
     cull = surfel_cull_counts(attrs, ranges, tx, ty)
     assert cull.pairs == pairs, (cull.pairs, pairs)
-    print_cull_shares("[report 2dgs] surfel", cull)
+    print_cull_shares(f"{tag} surfel", cull)
     # both surfel kernels need the cull's test alone on the culled pairs
     pair_ops = (SURFEL_OPS_PER_PAIR * (pairs - cull.culled)
                 + SURFEL_OPS_PER_CULLED * cull.culled)
@@ -1419,7 +1546,7 @@ def phase_report2d(trainer, launches, dev):
                    bwd_plain_ms, pair_ops + BWD2_OPS_PER_CONTRIB * contrib,
                    live_bytes + 2 * out_bytes + attrs.numel() * 4,
                    v1=bwd_v1)]
-    print(f"[report 2dgs] surfel blend inputs: {tx * 16}x{ty * 16} padded, "
+    print(f"{tag} surfel blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs before "
           f"saturation, {contrib} contributing; loss terms {terms_line}",
           flush=True)
@@ -1427,23 +1554,10 @@ def phase_report2d(trainer, launches, dev):
 
 
 def phase_report_pgsr(trainer, launches, dev, parent=None):
-    """The three planar kernels against their plain versions at the pgsr
-    path's own inputs (the trained model, camera 0), under the cotangent
-    of the pgsr multi-view loss at the end of training through the
-    reference render plus a random one on final_T, each channel group
-    scaled to a largest entry of 1. The backward compares as a whole at
-    the stated tolerance and row by row in units of each row's largest
-    plain value; rows 14-15 (the abs screen gradients) as gradients, row
-    13 (the observe count) exactly and equal to the observe kernel's
-    counts."""
-    from types import SimpleNamespace
-
-    from gssr_tpu_torch.ops import blend_pgsr as B
-    from gssr_tpu_torch.ops.blend import blend_pair_count
-    from gssr_tpu_torch.ops.rasterize_pgsr import (
-        planar_geometry,
-        planar_outputs,
-    )
+    """The three planar kernels at the pgsr path's own inputs (the trained
+    model, camera 0, and the neighbour drawn for it): their rows of the
+    {"kernels": [...]} line."""
+    from gssr_tpu_torch.ops.rasterize_pgsr import planar_geometry
     from gssr_tpu_torch.ops.sh import sh_to_color
     scene, state = trainer.scene, trainer.scene.state
     g, p = scene.gaussians, state.params
@@ -1453,9 +1567,66 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
         scales, rots = g.get_scaling(p), g.get_rotation(p)
         color = sh_to_color(3, g.get_features(p), p["xyz"], cam.campos)
         normal, distance = planar_geometry(p["xyz"], scales, rots, cam)
-        attrs, b, tx, ty = pgsr_inputs(
+        inputs = pgsr_inputs(
             p["xyz"], scales, rots, g.get_opacity(p)[:, 0], color, normal,
             distance, cam, scene.width, scene.height, active=state.active)
+        near, near_gray = scene.near_for(cam_h)
+        near_cam = near.arrays(dev)
+        near_out = scene.render_params(p, near_cam, g.active_sh_degree(STEPS),
+                                       state.active, scene.background,
+                                       forward_observe=False)
+    return planar_kernels("[report pgsr]", scene, cam_h, cam, inputs,
+                          (near_out, near_cam, near_gray), launches, parent)
+
+
+def phase_report_scaffold_pgsr(trainer, launches, dev, card_line):
+    """The three planar kernels at the scaffold-pgsr path's own inputs: the
+    neural gaussians that its trained anchors and MLP decode for camera 0,
+    with the neighbour's render of the same anchors for the multi-view
+    loss. Printed apart."""
+    from gssr_tpu_torch.ops.rasterize_pgsr import planar_geometry
+    scene, state = trainer.scene, trainer.scene.state
+    cam_h, cam, ng, visible = decoded_camera0(scene, state, dev)
+    with torch.no_grad():
+        normal, distance = planar_geometry(ng.xyz, ng.scaling, ng.rotation,
+                                           cam)
+        inputs = pgsr_inputs(ng.xyz, ng.scaling, ng.rotation, ng.opacity,
+                             ng.color, normal, distance, cam, scene.width,
+                             scene.height, active=ng.mask)
+        near, near_gray = scene.near_for(cam_h)
+        near_cam = near.arrays(dev)
+        n_visible, n_gate, _ = scene.visible_anchors(state, near_cam, STEPS)
+        _, near_out = scene.decode_and_render(
+            state.anchors, state.mlp, near_cam, near.uid, n_visible,
+            state.active, scene.background, level_scale_gate=n_gate)
+    tag = "[report scaffold-pgsr]"
+    print(f"{tag} camera 0: {int(visible.sum())} visible anchors of "
+          f"{int(state.n_active)}, {int(ng.mask.sum())} of "
+          f"{ng.mask.shape[0]} neural gaussians with opacity > 0")
+    print_rows(tag, planar_kernels(tag, scene, cam_h, cam, inputs,
+                                   (near_out, near_cam, near_gray),
+                                   launches), card_line)
+
+
+def planar_kernels(tag, scene, cam_h, cam, inputs, near, launches,
+                   parent=None):
+    """The three planar kernels against their plain versions on `inputs`
+    (pgsr_inputs' tuple, from camera cam_h of `scene`), under the
+    cotangent of the pgsr multi-view loss at the end of training through
+    this render (`near`: the neighbour's render, CameraArrays and
+    grayscale frame) plus a random one on final_T, each channel group
+    scaled to a largest entry of 1. The backward compares as a whole at
+    the stated tolerance and row by row in units of each row's largest
+    plain value; rows 14-15 (the abs screen gradients) as gradients, row
+    13 (the observe count) exactly and equal to the observe kernel's
+    counts. Prints the cull shares; returns the three report rows."""
+    from types import SimpleNamespace
+
+    from gssr_tpu_torch.ops import blend_pgsr as B
+    from gssr_tpu_torch.ops.blend import blend_pair_count
+    from gssr_tpu_torch.ops.rasterize_pgsr import planar_outputs
+    attrs, b, tx, ty = inputs
+    near_out, near_cam, near_gray = near
     ranges = b.tile_ranges
     out_k = B.blend_pgsr_fwd(attrs, ranges, tx, ty)
     out_p, fwd_plain_ms = timed(lambda: B.blend_pgsr_fwd_plain(attrs, ranges,
@@ -1474,12 +1645,6 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
     f = out_k.clone().requires_grad_(True)
     out = SimpleNamespace(**planar_outputs(
         B.PlanarMaps(f), cam, scene.width, scene.height, scene.background))
-    near, near_gray = scene.near_for(cam_h)
-    near_cam = near.arrays(dev)
-    with torch.no_grad():
-        near_out = scene.render_params(p, near_cam, g.active_sh_degree(step),
-                                       state.active, scene.background,
-                                       forward_observe=False)
     gt = scene.gt_device(cam_h)
     terms = scene.loss_terms(out, gt, step, cam)
     terms.update(scene.multi_view_terms(out, near_out, cam, near_cam, gt,
@@ -1489,7 +1654,7 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
     # the loss reaches final_T only through the background, black here: a
     # random probe on it drives the backward's background term
     gen = torch.Generator(device="cpu").manual_seed(5)
-    probe = torch.randn(out.final_T.shape, generator=gen).to(dev)
+    probe = torch.randn(out.final_T.shape, generator=gen).to(f.device)
     (cot,) = torch.autograd.grad(
         sum(terms.values()) + (out.final_T * probe).sum(), f)
     for lo, hi in ((B.PO_RGB, B.PO_RGB + 3), (B.PO_NRM, B.PO_NRM + 3),
@@ -1515,7 +1680,7 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
     # own largest value
     row_max = d_p.abs().amax(dim=1)
     grad_max = row_max[:B.LIVE_ATTRS_P]
-    print(f"[report pgsr] largest plain value per row: "
+    print(f"{tag} largest plain value per row: "
           f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
           f"{int((grad_max > 100 * BWD_TOL['atol']).sum())} of "
           f"{B.LIVE_ATTRS_P} live rows above 100 x atol; v1 max|err| "
@@ -1524,13 +1689,13 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
     pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
     cull = gauss_cull_counts(attrs, ranges, tx, ty)
     assert cull.pairs == pairs, (cull.pairs, pairs)
-    print_cull_shares("[report pgsr] planar", cull)
+    print_cull_shares(f"{tag} planar", cull)
     # the observe count's own work: the pairs up to every pixel's 0.5
     # point, and the block test of a warp step it skips whole
     obs_cull = gauss_cull_counts(attrs, ranges, tx, ty,
                                  walks=lambda d: d > 0.5)
-    print_cull_shares("[report pgsr] observe (to D <= 0.5)", obs_cull)
-    print(f"[report pgsr] observe: {pairs - obs_cull.pairs} of {pairs} "
+    print_cull_shares(f"{tag} observe (to D <= 0.5)", obs_cull)
+    print(f"{tag} observe: {pairs - obs_cull.pairs} of {pairs} "
           f"pairs to T_EPS ({100 * (1 - obs_cull.pairs / pairs):.2f} %) lie "
           f"past their pixel's 0.5 point; the tiles read {obs_cull.slots} "
           f"of {attrs.shape[1]} instance slots up to their stop")
@@ -1563,7 +1728,7 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
                    + BWDP_OPS_PER_CONTRIB * contrib,
                    live_bytes + 2 * map_bytes + attrs.numel() * 4,
                    v1=bwd_v1)]
-    print(f"[report pgsr] planar blend inputs: {tx * 16}x{ty * 16} padded, "
+    print(f"{tag} planar blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs before "
           f"saturation, {contrib} contributing, {int(obs_k.sum())} observed; "
           f"loss terms {terms_line}", flush=True)
@@ -1597,23 +1762,23 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         write_scene(os.path.join(root, "scene"), dev)
         print(f"[train] scene written in {time.perf_counter() - t1:.1f} s")
-        trainer3, launches3 = phase_train(dev, root, card_line, "3dgs")
-        trainer2, launches2 = phase_train(dev, root, card_line, "2dgs")
-        trainerp, launchesp = phase_train(dev, root, card_line, "pgsr")
-        trainers, launchess = phase_train(dev, root, card_line,
-                                          "scaffold-gs")
-        phase_mesh(trainer2, card_line)
-        phase_mesh(trainerp, card_line)
+        runs = {m: phase_train(dev, root, card_line, m)
+                for m in ("3dgs", "2dgs", "pgsr") + ANCHOR_METHODS}
+        for m in MESH_METHODS:
+            phase_mesh(runs[m][0], card_line)
         if args.profile:
             stem, ext = os.path.splitext(args.profile)
-            phase_profile(trainer3, args.profile, card_line)
-            phase_profile(trainer2, f"{stem}_2dgs{ext}", card_line)
-            phase_profile(trainerp, f"{stem}_pgsr{ext}", card_line)
-            phase_profile(trainers, f"{stem}_scaffold{ext}", card_line)
-        rows = phase_report(trainer3, launches3, dev, parent)
-        rows += phase_report2d(trainer2, launches2, dev)
-        rows += phase_report_pgsr(trainerp, launchesp, dev, parent)
-        phase_report_scaffold(trainers, launchess, dev, card_line)
+            phase_profile(runs["3dgs"][0], args.profile, card_line)
+            for m, suffix in (("2dgs", "2dgs"), ("pgsr", "pgsr"),
+                              ("scaffold-gs", "scaffold"),
+                              ("octree-2dgs", "octree2dgs")):
+                phase_profile(runs[m][0], f"{stem}_{suffix}{ext}", card_line)
+        rows = phase_report(*runs["3dgs"], dev, parent)
+        rows += phase_report2d(*runs["2dgs"], dev)
+        rows += phase_report_pgsr(*runs["pgsr"], dev, parent)
+        phase_report_scaffold(*runs["scaffold-gs"], dev, card_line)
+        phase_report_octree2d(*runs["octree-2dgs"], dev, card_line)
+        phase_report_scaffold_pgsr(*runs["scaffold-pgsr"], dev, card_line)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

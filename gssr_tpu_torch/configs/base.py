@@ -149,7 +149,13 @@ FOREIGN_FIELDS = {
     "TwoDGSSceneConfig": _SCENE_FIELDS,
     "PGSRSceneConfig": _SCENE_FIELDS,
     "ScaffoldSceneConfig": _SCENE_FIELDS,
+    "OctreeSceneConfig": _SCENE_FIELDS,
+    "Scaffold2DGSSceneConfig": _SCENE_FIELDS,
+    "Octree2DGSSceneConfig": _SCENE_FIELDS,
+    "ScaffoldPGSRSceneConfig": _SCENE_FIELDS,
+    "OctreePGSRSceneConfig": _SCENE_FIELDS,
     "ScaffoldGaussianConfig": {"visible_budget_factor": None},
+    "OctreeGaussianConfig": {"visible_budget_factor": None},
 }
 
 

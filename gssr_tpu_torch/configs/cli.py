@@ -15,11 +15,7 @@ import typing
 from typing import List, Optional, get_args, get_origin
 
 from gssr_tpu_torch.configs.base import Config
-from gssr_tpu_torch.configs.methods import (
-    DESCRIPTIONS,
-    NOT_YET_PORTED,
-    get_method_config,
-)
+from gssr_tpu_torch.configs.methods import DESCRIPTIONS, get_method_config
 
 
 def _coerce(value: str, typ):
@@ -76,7 +72,6 @@ def print_help():
           "[--field.path value ...]\n\nmethods:")
     for k, v in DESCRIPTIONS.items():
         print(f"  {k:16s} {v}")
-    print(f"  (not yet ported: {', '.join(NOT_YET_PORTED)})")
     print("\ncommon flags: --source-path PATH --output-path PATH "
           "--eval true --trainer.iterations N --machine.device cuda|cpu")
 

@@ -1,9 +1,5 @@
-"""Method registry (port of gssr_tpu/configs/methods.py).
-
-The `3dgs`, `2dgs`, `pgsr` and `scaffold-gs` presets are ported; the
-reference's other five methods are listed so that asking for one fails
-with a clear message until their slice lands.
-"""
+"""Method registry (port of gssr_tpu/configs/methods.py): the nine
+method presets, with the reference's fields."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -63,27 +59,82 @@ def _scaffold():
             lambda_scaling=0.01))
 
 
-METHOD_FACTORIES: Dict[str, Callable[[], Config]] = {"3dgs": _vanilla,
-                                                     "2dgs": _twodgs,
-                                                     "pgsr": _pgsr,
-                                                     "scaffold-gs": _scaffold}
+def _octree():
+    from gssr_tpu_torch.models.octree import OctreeGaussianConfig
+    from gssr_tpu_torch.scene.octree import OctreeSceneConfig
+    return Config(
+        method_name="octree-gs",
+        scene=OctreeSceneConfig(
+            dataloader=DataLoaderConfig(),
+            gaussians=OctreeGaussianConfig()))
 
-NOT_YET_PORTED = ("octree-gs", "scaffold-2dgs", "octree-2dgs",
-                  "scaffold-pgsr", "octree-pgsr")
 
-DESCRIPTIONS = {"3dgs": "Vanilla 3D Gaussian Splatting",
-                "2dgs": "2DGS surfel splatting",
-                "pgsr": "PGSR planar splatting with multi-view regularization",
-                "scaffold-gs": "Scaffold-GS anchors with MLP-decoded neural "
-                               "gaussians"}
+def _scaffold_2dgs():
+    from gssr_tpu_torch.models.scaffold import ScaffoldGaussianConfig
+    from gssr_tpu_torch.scene.scaffold_2dgs import Scaffold2DGSSceneConfig
+    return Config(
+        method_name="scaffold-2dgs",
+        scene=Scaffold2DGSSceneConfig(
+            dataloader=DataLoaderConfig(),
+            gaussians=ScaffoldGaussianConfig()))
+
+
+def _octree_2dgs():
+    from gssr_tpu_torch.models.octree import OctreeGaussianConfig
+    from gssr_tpu_torch.scene.octree_2dgs import Octree2DGSSceneConfig
+    return Config(
+        method_name="octree-2dgs",
+        scene=Octree2DGSSceneConfig(
+            dataloader=DataLoaderConfig(),
+            gaussians=OctreeGaussianConfig()))
+
+
+def _scaffold_pgsr():
+    from gssr_tpu_torch.models.scaffold import ScaffoldGaussianConfig
+    from gssr_tpu_torch.scene.scaffold_pgsr import ScaffoldPGSRSceneConfig
+    return Config(
+        method_name="scaffold-pgsr",
+        scene=ScaffoldPGSRSceneConfig(
+            dataloader=DataLoaderConfig(),
+            gaussians=ScaffoldGaussianConfig()))
+
+
+def _octree_pgsr():
+    from gssr_tpu_torch.models.octree import OctreeGaussianConfig
+    from gssr_tpu_torch.scene.octree_pgsr import OctreePGSRSceneConfig
+    return Config(
+        method_name="octree-pgsr",
+        scene=OctreePGSRSceneConfig(
+            dataloader=DataLoaderConfig(),
+            gaussians=OctreeGaussianConfig()))
+
+
+METHOD_FACTORIES: Dict[str, Callable[[], Config]] = {
+    "3dgs": _vanilla,
+    "2dgs": _twodgs,
+    "scaffold-gs": _scaffold,
+    "octree-gs": _octree,
+    "scaffold-2dgs": _scaffold_2dgs,
+    "octree-2dgs": _octree_2dgs,
+    "pgsr": _pgsr,
+    "scaffold-pgsr": _scaffold_pgsr,
+    "octree-pgsr": _octree_pgsr,
+}
+
+DESCRIPTIONS = {
+    "3dgs": "Vanilla 3D Gaussian Splatting",
+    "scaffold-gs": "Scaffold-GS anchors with MLP-decoded neural gaussians",
+    "octree-gs": "Octree-GS (level-of-detail anchors)",
+    "2dgs": "2DGS surfel splatting",
+    "scaffold-2dgs": "Scaffold-GS + 2DGS",
+    "octree-2dgs": "Octree-GS + 2DGS",
+    "pgsr": "PGSR planar splatting with multi-view regularization",
+    "scaffold-pgsr": "Scaffold-GS + PGSR",
+    "octree-pgsr": "Octree-GS + PGSR",
+}
 
 
 def get_method_config(name: str) -> Config:
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"method {name!r} is not yet ported to gssr_tpu_torch (only "
-            f"{sorted(METHOD_FACTORIES)}); train it with gssr_tpu's "
-            f"train.py meanwhile")
     if name not in METHOD_FACTORIES:
         raise KeyError(f"unknown method {name!r}; available: "
                        f"{sorted(METHOD_FACTORIES)}")
@@ -92,17 +143,39 @@ def get_method_config(name: str) -> Config:
 
 def build_scene(config: Config, device, **kwargs):
     """Instantiate the scene matching the scene config's type."""
+    from gssr_tpu_torch.scene.octree import OctreeScene, OctreeSceneConfig
+    from gssr_tpu_torch.scene.octree_2dgs import (
+        Octree2DGSScene,
+        Octree2DGSSceneConfig,
+    )
+    from gssr_tpu_torch.scene.octree_pgsr import (
+        OctreePGSRScene,
+        OctreePGSRSceneConfig,
+    )
     from gssr_tpu_torch.scene.pgsr import PGSRScene, PGSRSceneConfig
     from gssr_tpu_torch.scene.scaffold import (
         ScaffoldScene,
         ScaffoldSceneConfig,
+    )
+    from gssr_tpu_torch.scene.scaffold_2dgs import (
+        Scaffold2DGSScene,
+        Scaffold2DGSSceneConfig,
+    )
+    from gssr_tpu_torch.scene.scaffold_pgsr import (
+        ScaffoldPGSRScene,
+        ScaffoldPGSRSceneConfig,
     )
     from gssr_tpu_torch.scene.twodgs import TwoDGSScene, TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaScene, VanillaSceneConfig
     scenes = {VanillaSceneConfig: VanillaScene,
               TwoDGSSceneConfig: TwoDGSScene,
               PGSRSceneConfig: PGSRScene,
-              ScaffoldSceneConfig: ScaffoldScene}
+              ScaffoldSceneConfig: ScaffoldScene,
+              OctreeSceneConfig: OctreeScene,
+              Scaffold2DGSSceneConfig: Scaffold2DGSScene,
+              Octree2DGSSceneConfig: Octree2DGSScene,
+              ScaffoldPGSRSceneConfig: ScaffoldPGSRScene,
+              OctreePGSRSceneConfig: OctreePGSRScene}
     cls = scenes.get(type(config.scene))
     if cls is None:
         raise NotImplementedError(
@@ -113,16 +186,25 @@ def build_scene(config: Config, device, **kwargs):
 
 def config_classes():
     """Name -> class map for YAML round trips."""
+    from gssr_tpu_torch.models.octree import OctreeGaussianConfig
     from gssr_tpu_torch.models.pgsr import PGSRGaussianConfig
     from gssr_tpu_torch.models.scaffold import ScaffoldGaussianConfig
     from gssr_tpu_torch.models.twod import TwoDGaussianConfig
     from gssr_tpu_torch.models.vanilla import VanillaGaussianConfig
+    from gssr_tpu_torch.scene.octree import OctreeSceneConfig
+    from gssr_tpu_torch.scene.octree_2dgs import Octree2DGSSceneConfig
+    from gssr_tpu_torch.scene.octree_pgsr import OctreePGSRSceneConfig
     from gssr_tpu_torch.scene.pgsr import PGSRSceneConfig
     from gssr_tpu_torch.scene.scaffold import ScaffoldSceneConfig
+    from gssr_tpu_torch.scene.scaffold_2dgs import Scaffold2DGSSceneConfig
+    from gssr_tpu_torch.scene.scaffold_pgsr import ScaffoldPGSRSceneConfig
     from gssr_tpu_torch.scene.twodgs import TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaSceneConfig
     classes = [Config, MachineConfig, TrainerConfig, DataLoaderConfig,
                VanillaGaussianConfig, VanillaSceneConfig,
                TwoDGaussianConfig, TwoDGSSceneConfig, PGSRGaussianConfig,
-               PGSRSceneConfig, ScaffoldGaussianConfig, ScaffoldSceneConfig]
+               PGSRSceneConfig, ScaffoldGaussianConfig, ScaffoldSceneConfig,
+               OctreeGaussianConfig, OctreeSceneConfig,
+               Scaffold2DGSSceneConfig, Octree2DGSSceneConfig,
+               ScaffoldPGSRSceneConfig, OctreePGSRSceneConfig]
     return {c.__name__: c for c in classes}

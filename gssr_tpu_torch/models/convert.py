@@ -1,4 +1,4 @@
-"""Carry a gaussian or scaffold state across between gssr_tpu and this
+"""Carry a gaussian, scaffold or octree state across between gssr_tpu and this
 port.
 
 gssr_tpu's GaussianState is a pytree whose flattened leaves (the order of
@@ -20,6 +20,9 @@ and its ScaffoldState's:
   stats        opacity_accum, anchor_denom, offset_grad_accum,
                offset_denom                                       (71-74)
   active, n_active                                                (75-76)
+
+and its OctreeState's the scaffold's 77, then level (77) and
+extra_level (78).
 """
 from __future__ import annotations
 
@@ -28,6 +31,11 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from gssr_tpu_torch.models.octree import (
+    OctreeGaussians,
+    OctreeState,
+    with_levels,
+)
 from gssr_tpu_torch.models.scaffold import (
     ANCHOR_NAMES,
     MLP_NAMES,
@@ -44,6 +52,7 @@ from gssr_tpu_torch.models.vanilla import (
 N_LEAVES = 3 * len(PARAM_NAMES) + 1 + len(STAT_NAMES) + 2
 N_SCAFFOLD_LEAVES = (3 * (len(ANCHOR_NAMES) + len(MLP_NAMES)) + 2
                      + len(SCAFFOLD_STATS) + 2)
+N_OCTREE_LEAVES = N_SCAFFOLD_LEAVES + 2
 
 
 def state_from_numpy(leaves: Sequence[np.ndarray], device) -> GaussianState:
@@ -109,3 +118,38 @@ def scaffold_state_to_numpy(state: ScaffoldState) -> List[np.ndarray]:
                + [state.stats[k] for k in SCAFFOLD_STATS]
                + [state.active, state.n_active])
     return [x.detach().cpu().numpy() for x in tensors]
+
+
+def octree_state_from_numpy(leaves: Sequence[np.ndarray],
+                            device) -> OctreeState:
+    """The port's octree state on `device` from the reference's leaves."""
+    if len(leaves) != N_OCTREE_LEAVES:
+        raise ValueError(f"expected {N_OCTREE_LEAVES} octree state leaves, "
+                         f"got {len(leaves)}")
+    base = scaffold_state_from_numpy(leaves[:N_SCAFFOLD_LEAVES], device)
+    level, extra = (torch.as_tensor(np.array(x), device=device)
+                    for x in leaves[N_SCAFFOLD_LEAVES:])
+    return with_levels(base, level.to(torch.int32), extra)
+
+
+def octree_state_to_numpy(state: OctreeState) -> List[np.ndarray]:
+    """The reference's leaf list from the port's octree state."""
+    return scaffold_state_to_numpy(state) + [
+        x.detach().cpu().numpy() for x in (state.level, state.extra_level)]
+
+
+def set_octree_host_attrs(gaussians: OctreeGaussians, *, levels: int,
+                          init_level: int, standard_dist: float,
+                          voxel_size: float, init_pos, cam_infos,
+                          visible_threshold: float, coarse_intervals):
+    """Give the port's octree model the reference model's host attributes
+    (plain numbers and arrays), so that both compute the same levels, LOD
+    masks and weed-outs."""
+    gaussians.levels = int(levels)
+    gaussians.init_level = int(init_level)
+    gaussians.standard_dist = float(standard_dist)
+    gaussians.voxel_size = float(voxel_size)
+    gaussians.init_pos = np.asarray(init_pos, np.float32)
+    gaussians.cam_infos = np.asarray(cam_infos, np.float32)
+    gaussians.visible_threshold = float(visible_threshold)
+    gaussians.coarse_intervals = [float(x) for x in coarse_intervals]

@@ -139,6 +139,15 @@ def _linear_init(gen, fan_in: int, fan_out: int):
     return w, b
 
 
+def reciprocal_f32(size: float, device) -> torch.Tensor:
+    """1 / size rounded once to float32, as a device scalar. The reference's
+    jitted densify divides by a voxel size that is a compile-time constant,
+    which XLA turns into a multiply by this reciprocal (and PyTorch's CUDA
+    division by a host scalar does the same); on a voxel grid x / size
+    often lands exactly on a .5 tie of `round`, where the two differ."""
+    return torch.tensor(np.float32(1.0) / np.float32(size), device=device)
+
+
 def _where_new(newly, x, value):
     """x with the rows of the new anchor slots set to value."""
     nd = newly.reshape((-1,) + (1,) * (x.dim() - 1))
@@ -408,22 +417,21 @@ class ScaffoldGaussians:
             (cfg.update_hierachy_factor // 2) ** level)
         size_factor = cfg.update_init_factor // (
             cfg.update_hierachy_factor ** level)
-        # a device scalar, so that every device divides, not multiplies by
-        # a rounded reciprocal
         cur_size = torch.tensor(voxel_size * size_factor,
                                 dtype=torch.float32, device=dev)
+        inv_size = reciprocal_f32(voxel_size * size_factor, dev)
 
         cand = ((grads >= cur_thr) & offset_mask
                 & (rand > 0.5 ** (level + 1)) & state.active[:, None])
         anchor_scaling = torch.exp(an["scaling"][:, :3])
         all_xyz = an["anchor"][:, None, :] + an["offset"] * anchor_scaling[
             :, None]
-        coords = torch.round(all_xyz.reshape(CA * K, 3) / cur_size).to(
+        coords = torch.round(all_xyz.reshape(CA * K, 3) * inv_size).to(
             torch.int32)
         keys = hash_coords(coords)
         exist_keys = torch.where(
             state.active,
-            hash_coords(torch.round(an["anchor"] / cur_size).to(
+            hash_coords(torch.round(an["anchor"] * inv_size).to(
                 torch.int32)),
             torch.full((CA,), KEY_MAX, dtype=torch.int32, device=dev))
         exist_sorted = torch.sort(exist_keys).values
@@ -432,15 +440,28 @@ class ScaffoldGaussians:
         coords_sorted = coords[dd.order]
         feat_sorted = torch.repeat_interleave(an["feat"], K, dim=0)[dd.order]
         feat_max = segment_max_sorted(feat_sorted, dd.seg_id, CA * K)
-        new_feat_sorted = feat_max[dd.seg_id]
+        state, _ = self._insert_anchors(
+            state, dd.is_new, coords_sorted.float() * cur_size,
+            feat_max[dd.seg_id], torch.log(cur_size))
+        return state
 
-        # new anchors into free slots by rank
+    @staticmethod
+    def _insert_anchors(state: ScaffoldState, is_new, anchor_rows, feat_rows,
+                        log_size):
+        """The candidates `is_new` become anchors in the free slots by rank,
+        at anchor_rows with features feat_rows (rows in the candidates'
+        order) and every scale log_size; their offsets, Adam moments and
+        statistics start at zero. Candidates beyond the free slots are
+        dropped. Returns (the new state, the mask of the slots filled)."""
+        an = state.anchors
+        CA = state.active.shape[0]
+        dev = an["anchor"].device
         free = ~state.active
         free_rank = torch.cumsum(free.to(torch.int64), 0) - 1
         free_list = torch.full((CA,), CA, dtype=torch.int64, device=dev)
         free_list[free_rank[free]] = torch.arange(CA, device=dev)[free]
-        new_rank = torch.cumsum(dd.is_new.to(torch.int64), 0) - 1
-        dst = torch.where(dd.is_new,
+        new_rank = torch.cumsum(is_new.to(torch.int64), 0) - 1
+        dst = torch.where(is_new,
                           free_list[torch.clamp(new_rank, max=CA - 1)], CA)
         dst = torch.where(new_rank < free.sum(), dst, CA)
         keep = dst < CA
@@ -449,14 +470,14 @@ class ScaffoldGaussians:
         newly = torch.zeros(CA, dtype=torch.bool, device=dev)
         newly[slots] = True
         anchor = an["anchor"].clone()
-        anchor[slots] = (coords_sorted.float() * cur_size)[keep]
+        anchor[slots] = anchor_rows[keep]
         feat = an["feat"].clone()
-        feat[slots] = new_feat_sorted[keep]
+        feat[slots] = feat_rows[keep]
         anchors = {
             "anchor": anchor,
             "offset": _where_new(newly, an["offset"], 0.0),
             "feat": feat,
-            "scaling": _where_new(newly, an["scaling"], torch.log(cur_size)),
+            "scaling": _where_new(newly, an["scaling"], log_size),
             "rotation": torch.where(
                 newly[:, None], torch.tensor([1.0, 0, 0, 0], device=dev),
                 an["rotation"]),
@@ -473,7 +494,17 @@ class ScaffoldGaussians:
                              zero_new(state.adam_anchor.v),
                              state.adam_anchor.count),
             stats=zero_new(state.stats), active=active,
-            n_active=active.sum(dtype=torch.int32))
+            n_active=active.sum(dtype=torch.int32)), newly
+
+    def offset_gradients(self, stats):
+        """The offsets' mean screen gradients and the mask of the offsets
+        seen often enough for them to count."""
+        cfg = self.config
+        grads = torch.nan_to_num(stats["offset_grad_accum"] / torch.clamp(
+            stats["offset_denom"], min=1e-12))
+        offset_mask = stats["offset_denom"] > (
+            cfg.densification_interval * cfg.success_threshold * 0.5)
+        return grads, offset_mask
 
     def adjust_anchor(self, state: ScaffoldState, voxel_size: float,
                       generator: Optional[torch.Generator] = None,
@@ -486,24 +517,26 @@ class ScaffoldGaussians:
         cfg = self.config
         st = state.stats
         CA, K = st["offset_denom"].shape
-        grads = torch.nan_to_num(st["offset_grad_accum"] / torch.clamp(
-            st["offset_denom"], min=1e-12))
-        offset_mask = st["offset_denom"] > (
-            cfg.densification_interval * cfg.success_threshold * 0.5)
+        grads, offset_mask = self.offset_gradients(st)
         for lvl in range(cfg.update_depth):
             rand = rands[lvl] if rands is not None else torch.rand(
                 (CA, K), generator=generator, device=generator.device)
             state = self._grow_level(state, lvl, grads, offset_mask,
                                      rand.to(st["offset_denom"].device),
                                      voxel_size)
+        return self._reset_and_prune(state, offset_mask)
 
-        # reset the sampled offsets' statistics
+    def _reset_and_prune(self, state: ScaffoldState,
+                         offset_mask) -> ScaffoldState:
+        """After growing: reset the sampled offsets' statistics, prune the
+        anchors with a low accumulated opacity and clamp the log scaling's
+        columns 3-5 at 0.05, as the reference does."""
+        cfg = self.config
         st = state.stats
         zero = torch.zeros_like(st["offset_denom"])
         offset_denom = torch.where(offset_mask, zero, st["offset_denom"])
         offset_grad = torch.where(offset_mask, zero,
                                   st["offset_grad_accum"])
-        # prune the anchors with a low accumulated opacity
         seen = st["anchor_denom"] > (cfg.densification_interval
                                      * cfg.success_threshold)
         prune = ((st["opacity_accum"] < cfg.opacity_cull_threshold
@@ -512,7 +545,6 @@ class ScaffoldGaussians:
         opacity_accum = torch.where(seen, zero_a, st["opacity_accum"])
         anchor_denom = torch.where(seen, zero_a, st["anchor_denom"])
         active = state.active & ~prune
-        # the reference clamps the log scaling's columns 3-5 at 0.05
         sc = state.anchors["scaling"]
         sc = torch.cat([sc[:, :3], torch.clamp(sc[:, 3:], max=0.05)], dim=1)
         return dataclasses.replace(
@@ -527,6 +559,11 @@ class ScaffoldGaussians:
     def save_ply(self, state: ScaffoldState, path: str):
         """The scaffold PLY schema of the reference."""
         from gssr_tpu_torch.dataio.ply import write_ply
+        write_ply(path, {k: v.astype(np.float32)
+                         for k, v in self._ply_columns(state).items()})
+
+    def _ply_columns(self, state: ScaffoldState) -> Dict[str, np.ndarray]:
+        """The active anchors' PLY columns, in the reference's order."""
         act = state.active.cpu().numpy()
         an = {k: x.detach().cpu().numpy()[act]
               for k, x in state.anchors.items()}
@@ -546,7 +583,7 @@ class ScaffoldGaussians:
             cols[f"scale_{i}"] = an["scaling"][:, i]
         for i in range(4):
             cols[f"rot_{i}"] = an["rotation"][:, i]
-        write_ply(path, {k: v.astype(np.float32) for k, v in cols.items()})
+        return cols
 
     def save_mlp_checkpoints(self, state: ScaffoldState, path: str):
         """The MLP as an .npz of mlp_<field> arrays, and GS-SR's unite-mode

@@ -115,7 +115,7 @@ def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
                            torch.full_like(fill_starts, instance_cap))
     marks = _scatter_drop(marks, fill_pos, tag | (tidx + 1), reduce="amax")
     v = torch.cummax(marks, 0).values
-    g_c = torch.clamp(v - 1, 0, n - 1)
+    g_c = torch.clamp(v - 1, 0, max(n - 1, 0))
 
     # one packed gather of the per-gaussian fields; rect fits one int32
     rect_w = torch.clamp(rect[:, 2] - rect[:, 0], min=1)
@@ -124,7 +124,12 @@ def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
     cols = [rect_pack, starts, depth.float().view(torch.int32), rcp_w]
     if tile_mask is not None:
         cols.append(tile_mask.to(torch.int32))
-    r = torch.stack(cols, dim=1)[g_c.long()]
+    table = torch.stack(cols, dim=1)
+    if n == 0:
+        # no gaussian (an anchor render with no visible anchor): every
+        # slot is a filler, which reads one zero row
+        table = table.new_zeros((1, table.shape[1]))
+    r = table[g_c.long()]
     x0 = r[:, 0] & 0x3FF
     y0 = (r[:, 0] >> 10) & 0x3FF
     rw = ((r[:, 0] >> 20) & 0x3FF) + 1

@@ -410,6 +410,10 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, per_gauss, gauss_id, gid_reduce, seg_bounds):
         ctx.save_for_backward(gid_reduce, seg_bounds)
+        if per_gauss.shape[0] == 0:
+            # no gaussian: every slot is a filler, zeroed by its hit
+            return per_gauss.new_zeros((gauss_id.shape[0],
+                                        per_gauss.shape[1]))
         return per_gauss[gauss_id.long()]
 
     @staticmethod

@@ -13,7 +13,8 @@ densify_until_iter window. The step's stages run inside profiler ranges
 records, a range costs one host call. The hook names (prefilter_anchors,
 decode_and_render, _rasterize_neural, extra_losses, scaling_loss,
 anchor_level_gate) are the reference's, for the octree and anchor-surfel
-scenes to override.
+scenes to override; step_terms lets the planar anchor scenes add a
+neighbour's render to a step.
 """
 from __future__ import annotations
 
@@ -96,6 +97,17 @@ class ScaffoldScene(VanillaScene):
     def extra_losses(self, ng, out, step: int, camera) -> Dict[str, object]:
         return {"scaling_loss": self.scaling_loss(ng)}
 
+    def step_terms(self, state, anchors, mlp, ng, out, gt, bg, step: int,
+                   camera, cam) -> Dict[str, object]:
+        """The losses of a train step: the image losses and extra_losses of
+        the render `out` (over background bg) of the neural gaussians `ng`
+        decoded from anchors and mlp for `camera` (a host Camera; cam its
+        CameraArrays). The planar anchor scenes add a neighbour's
+        render."""
+        terms = self.loss_terms(out, gt, step, cam)
+        terms.update(self.extra_losses(ng, out, step, cam))
+        return terms
+
     def scaling_loss(self, ng, dims: int = 3):
         """lambda_scaling times the mean, over the decoded gaussians that
         render, of the product of their first `dims` scales."""
@@ -110,14 +122,17 @@ class ScaffoldScene(VanillaScene):
 
     def visible_anchors(self, state: ScaffoldState, camera, step,
                         is_training=True):
-        """The prefilter's anchors, narrowed by the level gate's mask, and
-        the gate."""
+        """The prefilter's anchors narrowed by the level gate's mask, the
+        gate, and the count of active anchors that mask drops (0-d; zero
+        without a mask)."""
         extra_mask, gate = self.anchor_level_gate(state, camera, step,
                                                   is_training)
         visible = self.prefilter_anchors(state.anchors, state.active, camera)
+        dropped = torch.zeros((), dtype=torch.int64, device=visible.device)
         if extra_mask is not None:
             visible = visible & extra_mask
-        return visible, gate
+            dropped = (state.active & ~extra_mask).sum()
+        return visible, gate, dropped
 
     # ------------------------------------------------------------------
     def train_step(self, state: ScaffoldState, camera, step: int):
@@ -130,7 +145,8 @@ class ScaffoldScene(VanillaScene):
         gt = self.gt_device(camera)
         bg = self.get_background()
         with record_function("scaffold.prefilter"):
-            visible, gate = self.visible_anchors(state, cam, step)
+            visible, gate, lod_dropped = self.visible_anchors(state, cam,
+                                                              step)
         anchors = {k: v.detach().requires_grad_(True)
                    for k, v in state.anchors.items()}
         mlp = {k: v.detach().requires_grad_(True)
@@ -142,8 +158,8 @@ class ScaffoldScene(VanillaScene):
         with record_function("scaffold.render_and_loss"):
             out = self._rasterize_neural(ng, cam, bg,
                                          mean2d_offset=m2d_offset)
-            terms = self.loss_terms(out, gt, step, cam)
-            terms.update(self.extra_losses(ng, out, step, cam))
+            terms = self.step_terms(state, anchors, mlp, ng, out, gt, bg,
+                                    step, camera, cam)
             loss = sum(terms.values())
         inputs = ([anchors[k] for k in ANCHOR_NAMES]
                   + [mlp[k] for k in MLP_NAMES] + [m2d_offset])
@@ -176,7 +192,7 @@ class ScaffoldScene(VanillaScene):
         metrics.update(loss=loss.detach(), num_rendered=out.num_rendered,
                        overflow=out.overflow,
                        n_visible=torch.tensor(ng.anchor_idx.shape[0]),
-                       n_neural=ng.mask.sum())
+                       n_neural=ng.mask.sum(), n_lod_dropped=lod_dropped)
         return new_state, metrics
 
     # ------------------------------------------------------------------
@@ -202,8 +218,8 @@ class ScaffoldScene(VanillaScene):
     @torch.no_grad()
     def eval_render(self, state: ScaffoldState, camera, step: int):
         cam = camera.arrays(self.device)
-        visible, gate = self.visible_anchors(state, cam, 0,
-                                             is_training=False)
+        visible, gate, _ = self.visible_anchors(state, cam, 0,
+                                                is_training=False)
         _, out = self.decode_and_render(state.anchors, state.mlp, cam,
                                         camera.uid, visible, state.active,
                                         self.background,

@@ -57,9 +57,7 @@ class VanillaScene:
         self.background = torch.as_tensor(self.dataloader.background,
                                           device=self.device)
         self.gaussians = self.make_gaussians()
-        pcd = self.dataloader.point_cloud
-        self.state = self.gaussians.create_from_points(
-            pcd.points, pcd.colors, self.device)
+        self.state = self.init_state()
         cam0 = self.dataloader.train_cameras[0]
         self.width, self.height = cam0.width, cam0.height
         self.generator = torch.Generator(device=self.device)
@@ -69,6 +67,13 @@ class VanillaScene:
     def make_gaussians(self) -> VanillaGaussians:
         return VanillaGaussians(self.config.gaussians,
                                 spatial_lr_scale=self.cameras_extent)
+
+    def init_state(self):
+        """The initial state from the scene's SfM points (the octree
+        scenes also pass the training cameras)."""
+        pcd = self.dataloader.point_cloud
+        return self.gaussians.create_from_points(pcd.points, pcd.colors,
+                                                 self.device)
 
     # ------------------------------------------------------------------
     def render_params(self, params, camera, sh_degree: int, active, bg,

@@ -27,7 +27,9 @@ for must in ("ops.blend", "ops.blend2d", "ops.projection2d", "ops.rasterize2d",
              "extract_mesh", "ops.blend_pgsr", "ops.rasterize_pgsr",
              "models.pgsr", "scene.pgsr", "dataio.view_selection",
              "ops.voxel", "models.scaffold", "models.interop",
-             "scene.scaffold"):
+             "scene.scaffold", "scene.octree", "models.octree",
+             "scene.scaffold_2dgs", "scene.octree_2dgs",
+             "scene.scaffold_pgsr", "scene.octree_pgsr"):
     assert "gssr_tpu_torch." + must in names, (must, names)
 assert len(names) >= 50, names
 print(len(names))

@@ -156,5 +156,5 @@ def test_the_entry_point_refuses_to_run_without_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="--machine.device cpu"):
         MachineConfig().torch_device()
     assert MachineConfig(device="cpu").torch_device().type == "cpu"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_method_config("scaffold-pgsr")
+    with pytest.raises(KeyError, match="unknown method"):
+        get_method_config("scaffold-3dgs")

@@ -6,8 +6,7 @@ Losses at rtol 1e-3, num_rendered and the active masks exactly, the
 statistics after every step and the final state leaf by leaf to 2e-4 of
 each leaf's largest value. Also: a
 gssr_tpu scaffold run's checkpoint and config.yml resume in the port and
-train on, and the preset registry ports scaffold-gs alone of the anchor
-methods.
+train on, and each of the nine method presets equals gssr_tpu's.
 """
 import dataclasses
 import os
@@ -172,20 +171,40 @@ def test_a_gssr_tpu_scaffold_run_resumes_in_the_port(scene_dir, tmp_path,
     assert int(back.n_active) == int(trainer.scene.state.n_active)
 
 
-def test_only_scaffold_gs_of_the_anchor_methods_is_ported():
+METHODS = ["3dgs", "2dgs", "pgsr", "scaffold-gs", "octree-gs",
+           "scaffold-2dgs", "octree-2dgs", "scaffold-pgsr", "octree-pgsr"]
+
+
+def _fields(obj):
+    """A config tree as (class name, {field: value}) nests, without the
+    gssr_tpu fields the port has no counterpart for."""
+    from gssr_tpu_torch.configs.base import FOREIGN_FIELDS
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    name = type(obj).__name__
+    return (name, {f.name: _fields(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj)
+                   if f.name not in FOREIGN_FIELDS.get(name, {})})
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_every_preset_matches_gssr_tpu(method):
+    """Each of the nine presets exists in the port, with gssr_tpu's scene
+    and gaussian config classes and field values (leaving out
+    configs/base.py::FOREIGN_FIELDS); the port's registry holds exactly
+    these nine."""
+    from gssr_tpu.configs.methods import get_method_config as j_config
     from gssr_tpu_torch.configs.methods import (
-        NOT_YET_PORTED,
+        DESCRIPTIONS,
+        METHOD_FACTORIES,
         get_method_config,
     )
-    from gssr_tpu_torch.scene.scaffold import ScaffoldSceneConfig
-    cfg = get_method_config("scaffold-gs")
-    assert isinstance(cfg.scene, ScaffoldSceneConfig)
-    assert (cfg.scene.gaussians.feat_dim, cfg.scene.gaussians.n_offsets,
-            cfg.scene.gaussians.appearance_dim) == (32, 10, 32)
-    assert cfg.scene.lambda_scaling == 0.01
-    assert sorted(NOT_YET_PORTED) == sorted(
-        ["octree-gs", "scaffold-2dgs", "octree-2dgs", "scaffold-pgsr",
-         "octree-pgsr"])
-    for name in NOT_YET_PORTED:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_method_config(name)
+    assert sorted(METHOD_FACTORIES) == sorted(DESCRIPTIONS) == sorted(METHODS)
+    cfg, ref = get_method_config(method), j_config(method)
+    assert cfg.method_name == method
+    assert _fields(cfg.scene) == _fields(ref.scene)
+    if "scaffold" in method or "octree" in method:
+        g = cfg.scene.gaussians
+        assert (g.feat_dim, g.n_offsets) == (32, 10)
+        assert g.appearance_dim == (0 if method.startswith("octree")
+                                    else 32)
