@@ -71,6 +71,22 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             octree-2dgs runs bounded; no render launches the observe
             kernel. Asserts non-empty meshes; prints their sizes and the
             seconds of rendering, fusion and marching tetrahedra.
+   split    the partitioned pipeline (BASELINE.md's large-scene path,
+            VastGaussian with octree-2dgs) through its entry points, in
+            process, in the same temporary root: `python -m
+            gssr_tpu_torch.split_scene --num-col 2 --num-row 1
+            --auto-align` (2 tiles, each with cameras and a box.txt),
+            `... train_split octree-2dgs` with phase 3's octree-2dgs
+            options (tile 0 also with a profiler window over steps 10-12,
+            whose trace must exist), each tile's trainer gone before the
+            next tile starts, then `train_split` again, which must skip
+            both; `... extract_mesh_split` at the mesh phase's bounded
+            257^3 grid (non-empty, every camera rendered in some tile's
+            box); `... extract_mesh --render-video --video-frames 30
+            --skip-mesh` on the 2dgs run (30 frames, an mp4 or PNGs).
+            Prints each tile's cameras and points, its median step, tail,
+            peak memory and anchors grown, the merge's stage seconds, and
+            the seconds a video frame.
 4. report   all seven kernels against their plain versions again, at their
             main path's own inputs (the trained model, one of its cameras):
             the vanilla pair under the cotangent of its loss, the surfel
@@ -115,6 +131,8 @@ held and timed against.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -123,6 +141,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from functools import partial
 from pathlib import Path
 
@@ -190,6 +209,10 @@ MESH_RUNS = (("bounded", ["--depth-trunc", "6.0", "--voxel-size", "0.0234",
              ("unbounded", ["--unbounded", "--resolution", "128"]))
 MESH_METHODS = {"2dgs": ("bounded", "unbounded"), "pgsr": ("bounded",),
                 "octree-2dgs": ("bounded",)}
+# the split phase: the partitioned path of BASELINE.md's large-scene
+# configuration (VastGaussian with octree-2dgs), and the fly-through's length
+SPLIT_METHOD = "octree-2dgs"
+VIDEO_FRAMES = 30
 # the kernels each main path must launch at every render of a train step
 VANILLA_PAIR = ("blend_fwd", "blend_bwd")
 SURFEL_PAIR = ("blend2d_fwd", "blend2d_bwd")
@@ -1056,6 +1079,159 @@ def observe_saving(trainer, card_line):
           f"the observe kernel, {without_ms:.2f} ms without  | {card_line}")
 
 
+# ---------------------------------------------------------------------------
+# split: VastGaussian partitioned training and merged meshing
+# ---------------------------------------------------------------------------
+
+def split_args(split, runs):
+    """train_split's arguments: the octree-2dgs path's own, on the tiles."""
+    return [SPLIT_METHOD, "--source-path", split, "--output-path", runs,
+            "--trainer.iterations", str(STEPS),
+            "--trainer.test-iterations", str(STEPS),
+            "--trainer.save-iterations", str(STEPS),
+            "--trainer.log-interval", "1",
+            "--scene.gaussians.densify-from-iter", "10",
+            "--scene.gaussians.densification-interval", "10",
+            *METHOD_ARGS[SPLIT_METHOD]]
+
+
+def phase_split(root, video_run, card_line):
+    """The partitioned pipeline through its entry points, in process:
+    split_scene into 2 tiles in the ground-plane frame, train_split of
+    octree-2dgs on each (a profiler window on tile 0), train_split again
+    (it must skip both), extract_mesh_split's merged 257^3 mesh, and a
+    30-frame fly-through of the 2dgs run `video_run`."""
+    from gssr_tpu_torch import (
+        extract_mesh,
+        extract_mesh_split,
+        split_scene,
+        train,
+        train_split,
+    )
+    from gssr_tpu_torch.dataio import colmap
+    from gssr_tpu_torch.utils.mesh_extract import read_mesh_ply
+    tag = "[split]"
+    split = os.path.join(root, "split")
+    runs = os.path.join(root, "split_runs")
+    prof = os.path.join(root, "prof")
+
+    t0 = time.perf_counter()
+    tiles = split_scene.main(["--source-path", os.path.join(root, "scene"),
+                              "--output-path", split, "--num-col", "2",
+                              "--num-row", "1", "--auto-align"])
+    split_s = time.perf_counter() - t0
+    assert len(tiles) == 2, tiles
+    for t in tiles:
+        sparse = os.path.join(t, "sparse/0")
+        images = colmap.read_images_binary(os.path.join(sparse, "images.bin"))
+        n_points = int(np.fromfile(os.path.join(sparse, "points3D.bin"),
+                                   np.uint64, 1)[0])
+        assert images and os.path.exists(os.path.join(t, "box.txt")), t
+        with open(os.path.join(t, "box.txt")) as f:
+            box = f.read().splitlines()[1]
+        print(f"{tag} {os.path.basename(t)}: {len(images)} cameras, "
+              f"{n_points} points, box (mx Mx my My) {box}")
+    print(f"{tag} split_scene --auto-align: {len(tiles)} tiles in "
+          f"{split_s:.2f} s (host)")
+
+    # each tile through train.main, measured; the trainer is dropped when
+    # it returns, and must be gone (its memory freed) before the next tile
+    held = torch.cuda.memory_allocated()
+    done = []
+
+    def train_tile(config):
+        name = os.path.basename(config.source_path)
+        if not done:
+            config.trainer.profile_dir = prof
+            config.trainer.profile_steps = [10, 12]
+        else:
+            assert done[-1]() is None, "the previous tile's trainer lives on"
+        start = torch.cuda.memory_allocated()
+        assert start - held < 256 * 2**20, (start, held)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        trainer = train.main(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = read_counts()
+        hist = trainer.history
+        assert len(hist) == STEPS and all(math.isfinite(h[1]) for h in hist)
+        for k in SURFEL_PAIR:
+            assert launches[k] >= STEPS, launches
+        assert all(launches[k] == 0 for k in V1_KERNELS + ("blend_pgsr_obs",))
+        log = trainer.scene.anchor_log
+        step_ms = [1e3 * (b[3] - a[3]) for a, b in zip(hist[1:], hist[2:])]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{tag} {name}: {len(trainer.scene.dataloader.train_cameras)} "
+              f"cameras, {STEPS} steps in {wall:.1f} s, {step_line(step_ms)};"
+              f" anchors grown {[e[1] for e in log]} at steps "
+              f"{[e[0] for e in log]}, {int(trainer.scene.state.n_active)} "
+              f"active; eval PSNR {trainer.evals[STEPS]['eval_psnr']:.3f} dB;"
+              f" peak memory {(peak - start) / 2**30:.2f} GiB above the "
+              f"{start / 2**30:.2f} GiB held at its start; launches "
+              f"{launches}  | {card_line}", flush=True)
+        done.append(weakref.ref(trainer))
+
+    args = split_args(split, runs)
+    trained, skipped = train_split.main(args, train_tile=train_tile)
+    assert len(trained) == 2 and not skipped
+    traces = os.listdir(prof)
+    assert traces, "no profiler trace"
+    print(f"{tag} profiler window (tile_0000 steps 10-12): "
+          f"{[(t, os.path.getsize(os.path.join(prof, t))) for t in traces]}")
+    again = io.StringIO()
+    with contextlib.redirect_stdout(again):
+        # both tiles are done: a tile trained here would call None
+        train_split.main(args, train_tile=None)
+    print(again.getvalue(), end="")
+    assert "trained 0 tiles (skipped 2 done) on host 0/1" in \
+        again.getvalue(), again.getvalue()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = extract_mesh_split.main([
+        "--source-path", split, "--runs-root", runs, "--method", SPLIT_METHOD,
+        "--depth-trunc", "6", "--voxel-size", "0.0234", "--sdf-trunc",
+        "0.08", "--num-cluster", "0"])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_in_box = sum(len(v) for v in res["in_box"].values())
+    assert launches["blend2d_fwd"] >= n_in_box and \
+        launches["blend_pgsr_obs"] == 0, launches
+    rendered = {n for names in res["in_box"].values() for n in names}
+    assert rendered == {f"cam{i:03d}" for i in range(N_CAMS)}, res["in_box"]
+    assert tuple(res["volume"].tsdf.shape) == (257,) * 3
+    verts, faces = read_mesh_ply(res["mesh_path"])
+    assert len(verts) > 0 and len(faces) > 0 and np.isfinite(verts).all()
+    sec = res["seconds"]
+    print(f"{tag} merged mesh: {len(verts)} verts, {len(faces)} faces on a "
+          f"257^3 grid in {wall:.1f} s: render {sec['render']:.2f} s, fusion "
+          f"{sec['fusion']:.2f} s, marching tetrahedra {sec['mtet']:.2f} s; "
+          f"in-box cameras {res['in_box']}; launches {launches}  | "
+          f"{card_line}", flush=True)
+    del res
+
+    reset_counts()
+    cfg = str(video_run.config.get_base_dir() / "config.yml")
+    res = extract_mesh.main(["--load-config", cfg, "--render-video",
+                             "--video-frames", str(VIDEO_FRAMES),
+                             "--skip-mesh"])
+    launches = read_counts()
+    assert launches["blend2d_fwd"] >= N_CAMS + VIDEO_FRAMES, launches
+    video = res["video"]
+    if video.endswith(".mp4"):
+        import cv2
+        n = int(cv2.VideoCapture(video).get(cv2.CAP_PROP_FRAME_COUNT))
+    else:
+        n = len([f for f in os.listdir(video) if f.endswith(".png")])
+    assert n == VIDEO_FRAMES, (video, n)
+    frame_ms = 1e3 * res["seconds"]["video"] / n
+    print(f"{tag} fly-through of the 2dgs run: {n} frames into "
+          f"{os.path.basename(video)}, {frame_ms:.2f} ms a frame; launches "
+          f"{launches}  | {card_line}", flush=True)
+
+
 def phase_profile(trainer, path, card_line):
     """Three more train steps under torch.profiler: kernel time by name
     and the device's busy share of the window."""
@@ -1766,6 +1942,9 @@ def main(argv=None) -> int:
                 for m in ("3dgs", "2dgs", "pgsr") + ANCHOR_METHODS}
         for m in MESH_METHODS:
             phase_mesh(runs[m][0], card_line)
+        t1 = time.perf_counter()
+        phase_split(root, runs["2dgs"][0], card_line)
+        print(f"[split] phase in {time.perf_counter() - t1:.1f} s")
         if args.profile:
             stem, ext = os.path.splitext(args.profile)
             phase_profile(runs["3dgs"][0], args.profile, card_line)

@@ -2,13 +2,14 @@
 
 Same shape and output-dir layout as the reference. Configs serialize as
 plain YAML data (dict tree + class names) and are rebuilt through the
-class registry of configs/methods.py. The multi-device fields wait for
-the scale-out slice; `machine.device` picks the torch device.
+class registry of configs/methods.py. The multi-device fields
+(`parallel`, `num_devices`, `dist_init`) wait for the scale-out slice;
+`machine.device` picks the torch device.
 
 `load_config_yaml` also reads a config.yml that gssr_tpu wrote. The
 fields the port has no counterpart for (FOREIGN_FIELDS) are dropped with
 one printed note each, and a value of one that would change what the
-port computes (several devices or hosts) raises, naming the field.
+port computes (several devices) raises, naming the field.
 """
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ import yaml
 @dataclass
 class MachineConfig:
     seed: int = 42
+    # train_split trains the tiles t with t % num_hosts == host_rank
+    num_hosts: int = 1
+    host_rank: int = 0
     # "cuda" (the card; raises if there is none) or "cpu"
     device: str = "cuda"
 
@@ -54,6 +58,22 @@ class TrainerConfig:
     load_gaussian_step: Optional[int] = None
     load_config: Optional[str] = None
     log_interval: int = 10
+    # a torch.profiler window from step profile_steps[0] to the end of
+    # step profile_steps[1], its trace written into profile_dir
+    profile_dir: Optional[str] = None
+    profile_steps: List[int] = field(default_factory=lambda: [100, 110])
+
+
+@dataclass
+class PartitionConfig:
+    """The VastGaussian partitioner's settings. As in gssr_tpu, nothing
+    reads them (split_scene takes its own flags); they round-trip."""
+    need_partition: bool = True
+    num_col: int = 4
+    num_row: int = 1
+    extend_ratio: float = 0.1
+    visibility_threshold: float = 0.5
+    config_of_tiles: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -77,10 +97,18 @@ class Config:
     experiment_name: Optional[str] = None
     timestamp: str = "{timestamp}"
     eval: bool = False
+    # train_split: train again the tiles whose earlier run has a DONE marker
+    retrain: bool = False
 
     machine: MachineConfig = field(default_factory=MachineConfig)
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
     scene: object = None          # method-specific SceneConfig
+    partitioner: PartitionConfig = field(default_factory=PartitionConfig)
+
+    # "tensorboard": scalars through tensorboardX into
+    # <run>/relative_log_dir, when it imports; anything else: none
+    writer: str = "tensorboard"
+    relative_log_dir: str = "logs"
 
     def set_experiment_name(self):
         if self.experiment_name is None:
@@ -128,23 +156,18 @@ def save_config_yaml(config: Config, path):
 
 # Fields of gssr_tpu's config classes that the port has no counterpart
 # for: class name -> {field: the values under which the port computes what
-# gssr_tpu computes, or None where no value changes it}. The partitioner
-# and retrain (the split entries), the TensorBoard writer and log dir, the
-# profiler window, scan_block (K steps per XLA dispatch, the same steps)
-# and the scene's instance_cap (the port sizes the instance buffer exactly
-# per render) and blend backend (both compute the same blend) change no
-# result of a single-device run, nor does the scaffold model's
+# gssr_tpu computes, or None where no value changes it}. scan_block (K
+# steps per XLA dispatch, the same steps) and the scene's instance_cap
+# (the port sizes the instance buffer exactly per render) and blend
+# backend (both compute the same blend) change no result of a
+# single-device run, nor does the scaffold model's
 # visible_budget_factor (the port sizes the visible-anchor decode exactly
 # per step; the reference grows its budget whenever it overflows).
 _SCENE_FIELDS = {"instance_cap": None, "backend": ("pallas", "reference")}
 FOREIGN_FIELDS = {
-    "Config": {"retrain": None, "partitioner": None, "writer": None,
-               "relative_log_dir": None},
-    "MachineConfig": {"num_hosts": (1,), "host_rank": (0,),
-                      "parallel": ("none",), "num_devices": (0, 1),
+    "MachineConfig": {"parallel": ("none",), "num_devices": (0, 1),
                       "dist_init": (False,)},
-    "TrainerConfig": {"profile_dir": None, "profile_steps": None,
-                      "scan_block": None},
+    "TrainerConfig": {"scan_block": None},
     "VanillaSceneConfig": _SCENE_FIELDS,
     "TwoDGSSceneConfig": _SCENE_FIELDS,
     "PGSRSceneConfig": _SCENE_FIELDS,

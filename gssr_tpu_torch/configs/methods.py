@@ -8,6 +8,7 @@ from gssr_tpu_torch.configs.base import (
     Config,
     DataLoaderConfig,
     MachineConfig,
+    PartitionConfig,
     TrainerConfig,
 )
 
@@ -201,6 +202,7 @@ def config_classes():
     from gssr_tpu_torch.scene.twodgs import TwoDGSSceneConfig
     from gssr_tpu_torch.scene.vanilla import VanillaSceneConfig
     classes = [Config, MachineConfig, TrainerConfig, DataLoaderConfig,
+               PartitionConfig,
                VanillaGaussianConfig, VanillaSceneConfig,
                TwoDGaussianConfig, TwoDGSSceneConfig, PGSRGaussianConfig,
                PGSRSceneConfig, ScaffoldGaussianConfig, ScaffoldSceneConfig,

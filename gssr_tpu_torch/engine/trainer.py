@@ -1,9 +1,10 @@
 """Training loop (port of gssr_tpu/engine/trainer.py).
 
 Same schedule surface as the reference: test/save/checkpoint iterations,
-gaussian + checkpoint persistence, resume. Metrics reach the host every
-`log_interval` steps, so the device queue stays full in between; each log
-point is also kept in `history` with its host time.
+gaussian + checkpoint persistence, TensorBoard scalars, a profiler
+window, resume. Metrics reach the host every `log_interval` steps, in one
+transfer, so the device queue stays full in between; each log point is
+also kept in `history` with its host time.
 
 Checkpoints are .npz files with the state leaves in gssr_tpu's order
 (`leaf_i`, see models/convert.py; the scene converts its own state) plus
@@ -12,22 +13,47 @@ port.
 """
 from __future__ import annotations
 
+import os
 import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from gssr_tpu_torch.configs.base import Config
 from gssr_tpu_torch.engine.callbacks import TrainingCallbackLocation
+
+
+def host_metrics(metrics: dict) -> dict:
+    """A step's metrics as Python floats, in their order. The 0-d tensors
+    on the device come to the host in one transfer."""
+    on_dev = [k for k, v in metrics.items()
+              if torch.is_tensor(v) and v.device.type != "cpu"]
+    out = {k: float(v) for k, v in metrics.items() if k not in on_dev}
+    if on_dev:
+        vals = torch.stack([metrics[k].to(torch.float64)
+                            for k in on_dev]).tolist()
+        out.update(zip(on_dev, vals))
+    return {k: out[k] for k in metrics}
 
 
 class Trainer:
     def __init__(self, config: Config, scene=None):
         self.config = config
         self.device = config.machine.torch_device()
-        config.get_base_dir().mkdir(parents=True, exist_ok=True)
+        base_dir = config.get_base_dir()
+        base_dir.mkdir(parents=True, exist_ok=True)
         self.gaussian_dir = config.get_gaussian_dir()
         self.ckpt_dir = config.get_checkpoint_dir()
+        self.writer = None
+        if config.writer == "tensorboard":
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self.writer = SummaryWriter(
+                    str(base_dir / config.relative_log_dir))
         self.scene = scene
         self.start_step = 0
         self.callbacks = []
@@ -56,22 +82,33 @@ class Trainer:
         ema_loss = None
         mpix_acc = 0.0
 
+        profiler = None
+        profile_steps = tcfg.profile_steps if tcfg.profile_dir else []
+
         for step in range(self.start_step + 1, tcfg.iterations + 1):
+            if profile_steps and step == profile_steps[0]:
+                profiler = self._start_profiler()
             for cb in self.callbacks:
                 cb.run_callback_at_location(
                     step, TrainingCallbackLocation.BEFORE_TRAIN_ITERATION)
             camera = scene.dataloader.next_train()
             mpix_acc += camera.width * camera.height / 1e6
             state, metrics = scene.train_step(state, camera, step)
+            if profiler is not None and len(profile_steps) > 1 \
+                    and step == profile_steps[1]:
+                self._stop_profiler(profiler)
+                profiler = None
 
             if step % log_interval == 0:
-                loss = float(metrics["loss"])
-                terms = {k: float(v) for k, v in metrics.items()
+                m = host_metrics(metrics)
+                loss = m["loss"]
+                terms = {k: v for k, v in m.items()
                          if k.endswith("_loss") or k.startswith("n_")}
-                self.history.append((step, loss, int(metrics["num_rendered"]),
+                self.history.append((step, loss, int(m["num_rendered"]),
                                      time.perf_counter(), terms))
                 ema_loss = loss if ema_loss is None else \
                     0.6 * ema_loss + 0.4 * loss
+                self._scalars("train", m, step)
             if step % (log_interval * 50) == 0:
                 dt = max(time.perf_counter() - t0, 1e-9)
                 print(f"step {step:6d}  loss "
@@ -79,11 +116,13 @@ class Trainer:
                       f"n_active {int(state.n_active)}  "
                       f"{(step - self.start_step) / dt:.1f} it/s  "
                       f"{mpix_acc / dt:.2f} Mpix/s")
+                self._scalars("perf", {"mpix_per_s": mpix_acc / dt}, step)
 
             if step in tcfg.test_iterations:
                 ev = self.evals[step] = scene.evaluate(state, step)
                 print(f"[eval {step}] " + "  ".join(
                     f"{k}={v:.4f}" for k, v in ev.items()))
+                self._scalars("eval", ev, step)
             if step in tcfg.save_iterations:
                 self.save_gaussians(state, step)
 
@@ -95,8 +134,39 @@ class Trainer:
                 cb.run_callback_at_location(
                     step, TrainingCallbackLocation.AFTER_TRAIN_ITERATION)
 
+        if profiler is not None:         # the window outlasted the run
+            self._stop_profiler(profiler)
+        if self.writer is not None:
+            self.writer.flush()
         scene.state = state
         return state
+
+    def _scalars(self, group: str, values: dict, step: int):
+        if self.writer is not None:
+            for k, v in values.items():
+                self.writer.add_scalar(f"{group}/{k}", v, step)
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """Stops the window and writes its chrome trace into
+        trainer.profile_dir."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        tcfg = self.config.trainer
+        os.makedirs(tcfg.profile_dir, exist_ok=True)
+        steps = "-".join(map(str, tcfg.profile_steps[:2]))
+        profiler.export_chrome_trace(
+            os.path.join(tcfg.profile_dir, f"trace_steps_{steps}.json"))
+        print(f"profiler trace written to {tcfg.profile_dir}")
 
     # ------------------------------------------------------------------
     def save_gaussians(self, state, step: int):

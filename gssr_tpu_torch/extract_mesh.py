@@ -2,9 +2,12 @@
 
     python -m gssr_tpu_torch.extract_mesh --load-config <run>/config.yml \
         [--iteration N] [--unbounded] [--voxel-size V] [--depth-trunc D] \
+        [--render-video [--video-frames N]] [--skip-mesh] \
         [--machine.device cpu]
 
-The mesh is written to <run>/mesh_<iteration>/fused_mesh.ply. It runs on
+The mesh is written to <run>/mesh_<iteration>/fused_mesh.ply, and
+--render-video renders an elliptical fly-through of N frames into
+render_traj.mp4 there (render_traj_frames/*.png without OpenCV). It runs on
 the device of the run's config (the CUDA card unless the run was trained
 on the CPU), or on the one `--machine.device` names; without a card and
 without `--machine.device cpu` it stops with an error.
@@ -41,6 +44,27 @@ def eval_setup(config_path: str, iteration: Optional[int] = None,
     return config, scene, run_dir, it
 
 
+def render_video(scene, n_frames: int, out_dir: Path, seconds: dict) -> str:
+    """Render an elliptical fly-through of n_frames through the scene's
+    eval render, on its device, and write it into out_dir; adds the
+    seconds it took under seconds["video"]. Returns the path written."""
+    from gssr_tpu_torch.utils.mesh_extract import clock
+    from gssr_tpu_torch.utils.render_paths import (
+        create_video,
+        generate_ellipse_path,
+    )
+    traj = generate_ellipse_path(scene.dataloader.train_cameras,
+                                 n_frames=n_frames)
+    print(f"rendering {len(traj)} fly-through frames ...")
+    t0 = clock(scene.device)
+    frames = [scene.eval_render(scene.state, c, step=10 ** 9).image
+              .cpu().numpy() for c in traj]
+    seconds["video"] = clock(scene.device) - t0
+    path = create_video(frames, str(out_dir / "render_traj.mp4"))
+    print(f"saved {path} ({len(frames)} frames)")
+    return path
+
+
 def parse_args(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--load-config", required=True)
@@ -53,8 +77,11 @@ def parse_args(argv: Optional[List[str]] = None):
     ap.add_argument("--num-cluster", type=int, default=1)
     ap.add_argument("--alpha-thres", type=float, default=0.5)
     ap.add_argument("--skip-images", action="store_true")
+    ap.add_argument("--render-video", action="store_true",
+                    help="render an elliptical fly-through video")
+    ap.add_argument("--video-frames", type=int, default=120)
     ap.add_argument("--skip-mesh", action="store_true",
-                    help="only export the rendered images")
+                    help="only export the rendered images and video")
     ap.add_argument("--export-test", action="store_true",
                     help="also render and export the eval split")
     ap.add_argument("--eval-gt", default=None, metavar="GT_MESH_PLY",
@@ -68,7 +95,8 @@ def parse_args(argv: Optional[List[str]] = None):
 
 def main(argv: Optional[List[str]] = None) -> dict:
     """Returns {"mesh_path", "verts", "faces", "seconds"} (seconds per
-    stage: render, fusion, mtet); no mesh keys with --skip-mesh."""
+    stage: render, fusion, mtet; video with --render-video, whose path is
+    under "video"); no mesh keys with --skip-mesh."""
     from gssr_tpu_torch.utils.mesh_extract import (
         GaussianExtractor,
         write_mesh_ply,
@@ -95,6 +123,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
         test_dir.mkdir(exist_ok=True)
         test_ex.export_images(str(test_dir))
     result = {"seconds": extractor.seconds}
+    if args.render_video:
+        result["video"] = render_video(scene, args.video_frames, out_dir,
+                                       extractor.seconds)
     if args.skip_mesh:
         return result
 

@@ -31,6 +31,51 @@ def _depth_of(out):
                      "needs a 2DGS-family method")
 
 
+def clock(device) -> float:
+    """The host clock after the device has finished its queued work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def device_views(cameras, depthmaps, rgbmaps, alphamaps, device):
+    """Per captured view: depth, rgb, alpha and the camera's w2c, fx, fy,
+    cx, cy, as float32 tensors on the device."""
+    f32 = lambda x: torch.as_tensor(                        # noqa: E731
+        np.asarray(x, np.float32), device=device)
+    for cam, depth, rgb, alpha in zip(cameras, depthmaps, rgbmaps,
+                                      alphamaps):
+        yield (f32(depth), f32(rgb), f32(alpha), f32(cam.w2c),
+               f32(cam.fx), f32(cam.fy), f32(cam.cx), f32(cam.cy))
+
+
+def bounding_sphere(cameras):
+    """The mean camera centre and the least distance of a camera to it."""
+    centers = np.stack([c.campos for c in cameras])
+    center = centers.mean(axis=0)
+    radius = float(np.linalg.norm(centers - center, axis=1).min())
+    return center, radius
+
+
+def fuse_bounded(cameras, depthmaps, rgbmaps, alphamaps, device,
+                 voxel_size=0.004, sdf_trunc=0.02, depth_trunc=3.0,
+                 bound_scale: float = 1.0, alpha_thres: float = 0.5):
+    """TSDF-fuse the captured views, in their order, into one cubic volume
+    of side depth_trunc * bound_scale (at most 768 voxels a side) centred
+    at the mean camera centre. Returns the TSDFVolume."""
+    center, _ = bounding_sphere(cameras)
+    half = depth_trunc * bound_scale * 0.5
+    dims = min(int(np.ceil(2 * half / voxel_size)), 768)
+    vol = make_volume(center - half, (dims, dims, dims), voxel_size,
+                      sdf_trunc, device=device)
+    for depth, rgb, alpha, w2c, fx, fy, cx, cy in device_views(
+            cameras, depthmaps, rgbmaps, alphamaps, device):
+        vol = integrate(vol, depth, rgb, w2c, fx, fy, cx, cy,
+                        depth_trunc=float(depth_trunc), alpha=alpha,
+                        alpha_thres=alpha_thres)
+    return vol
+
+
 class GaussianExtractor:
     """Render-all-cameras capture plus TSDF fusion. The captured maps stay
     on the host; each is moved to the device when it is fused.
@@ -47,52 +92,25 @@ class GaussianExtractor:
         self.cameras = []
         self.seconds = {"render": 0.0, "fusion": 0.0, "mtet": 0.0}
 
-    def _clock(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
     def reconstruction(self, cameras):
-        t0 = self._clock()
+        t0 = clock(self.device)
         self.cameras = list(cameras)
         for cam in self.cameras:
             out = self.scene.eval_render(self.state, cam, step=10 ** 9)
             self.rgbmaps.append(out.image.cpu().numpy())
             self.depthmaps.append(_depth_of(out).cpu().numpy())
             self.alphamaps.append(out.alpha.cpu().numpy())
-        self.seconds["render"] += self._clock() - t0
-
-    def _views(self):
-        """Per captured view: depth, rgb, alpha and the camera's w2c, fx,
-        fy, cx, cy, as float32 tensors on the device."""
-        f32 = lambda x: torch.as_tensor(                    # noqa: E731
-            np.asarray(x, np.float32), device=self.device)
-        for cam, depth, rgb, alpha in zip(self.cameras, self.depthmaps,
-                                          self.rgbmaps, self.alphamaps):
-            yield (f32(depth), f32(rgb), f32(alpha), f32(cam.w2c),
-                   f32(cam.fx), f32(cam.fy), f32(cam.cx), f32(cam.cy))
-
-    def estimate_bounding_sphere(self):
-        centers = np.stack([c.campos for c in self.cameras])
-        center = centers.mean(axis=0)
-        radius = float(np.linalg.norm(centers - center, axis=1).min())
-        return center, radius
+        self.seconds["render"] += clock(self.device) - t0
 
     def extract_mesh_bounded(self, voxel_size=0.004, sdf_trunc=0.02,
                              depth_trunc=3.0, bound_scale: float = 1.0,
                              alpha_thres: float = 0.5):
         """Returns (verts, faces, vertex_colors)."""
-        center, _ = self.estimate_bounding_sphere()
-        half = depth_trunc * bound_scale * 0.5
-        dims = min(int(np.ceil(2 * half / voxel_size)), 768)
-        t0 = self._clock()
-        vol = make_volume(center - half, (dims, dims, dims), voxel_size,
-                          sdf_trunc, device=self.device)
-        for depth, rgb, alpha, w2c, fx, fy, cx, cy in self._views():
-            vol = integrate(vol, depth, rgb, w2c, fx, fy, cx, cy,
-                            depth_trunc=float(depth_trunc), alpha=alpha,
-                            alpha_thres=alpha_thres)
-        t1 = self._clock()
+        t0 = clock(self.device)
+        vol = fuse_bounded(self.cameras, self.depthmaps, self.rgbmaps,
+                           self.alphamaps, self.device, voxel_size,
+                           sdf_trunc, depth_trunc, bound_scale, alpha_thres)
+        t1 = clock(self.device)
         mesh = extract_mesh(vol)
         self.seconds["fusion"] += t1 - t0
         self.seconds["mtet"] += time.perf_counter() - t1
@@ -113,7 +131,9 @@ class GaussianExtractor:
         tsdf = torch.ones(n, device=self.device)
         weight = torch.zeros(n, device=self.device)
         rgbacc = torch.zeros((n, 3), device=self.device) if with_rgb else None
-        for depth, rgb, alpha, w2c, fx, fy, cx, cy in self._views():
+        for depth, rgb, alpha, w2c, fx, fy, cx, cy in device_views(
+                self.cameras, self.depthmaps, self.rgbmaps, self.alphamaps,
+                self.device):
             H, W = depth.shape
             cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
             z = cam[..., 2]
@@ -146,11 +166,11 @@ class GaussianExtractor:
         coordinates, each cell is un-contracted to the world and projected
         into every view; vertex colours are fused at the extracted
         vertices afterwards. Returns (verts, faces, vertex_colors)."""
-        center, radius = self.estimate_bounding_sphere()
+        center, radius = bounding_sphere(self.cameras)
         center = torch.as_tensor(np.asarray(center, np.float32),
                                  device=self.device)
         N = min(resolution, 512)
-        t0 = self._clock()
+        t0 = clock(self.device)
         lin = torch.linspace(-2.0, 2.0, N, device=self.device)
         grid_c = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"),
                              dim=-1)
@@ -159,7 +179,7 @@ class GaussianExtractor:
             uncontract(grid_c, center, radius), center, radius, trunc_c,
             alpha_thres, with_rgb=False)
         tsdf, mask = tsdf.cpu().numpy(), (weight > 0).cpu().numpy()
-        t1 = self._clock()
+        t1 = clock(self.device)
         verts_c, faces = marching_tetrahedra_blocked(
             tsdf, level=0.0, spacing=(4.0 / (N - 1),) * 3,
             origin=(-2.0, -2.0, -2.0), mask=mask)
@@ -175,7 +195,7 @@ class GaussianExtractor:
         else:
             verts = verts_c
             colors = np.zeros((0, 3), np.float32)
-        t3 = self._clock()
+        t3 = clock(self.device)
         self.seconds["fusion"] += (t1 - t0) + (t3 - t2)
         self.seconds["mtet"] += t2 - t1
         return verts, faces, colors

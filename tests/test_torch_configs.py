@@ -56,7 +56,6 @@ def test_a_gssr_tpu_config_loads_in_the_port(method, tmp_path, capsys):
 
 @pytest.mark.parametrize("field,value", [("num_devices", 4),
                                          ("parallel", "dp"),
-                                         ("num_hosts", 2),
                                          ("dist_init", True)])
 def test_a_multi_device_gssr_tpu_config_raises(field, value, tmp_path):
     from gssr_tpu_torch.configs.base import load_config_yaml

@@ -29,7 +29,9 @@ for must in ("ops.blend", "ops.blend2d", "ops.projection2d", "ops.rasterize2d",
              "ops.voxel", "models.scaffold", "models.interop",
              "scene.scaffold", "scene.octree", "models.octree",
              "scene.scaffold_2dgs", "scene.octree_2dgs",
-             "scene.scaffold_pgsr", "scene.octree_pgsr"):
+             "scene.scaffold_pgsr", "scene.octree_pgsr", "utils.partition",
+             "utils.render_paths", "split_scene", "train_split",
+             "extract_mesh_split", "convert"):
     assert "gssr_tpu_torch." + must in names, (must, names)
 assert len(names) >= 50, names
 print(len(names))
