@@ -87,6 +87,29 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             Prints each tile's cameras and points, its median step, tail,
             peak memory and anchors grown, the merge's stage seconds, and
             the seconds a video frame.
+   parallel the multi-device modes (parallel/, ops/band.py) on the same
+            scene: `python -m gssr_tpu_torch.train 3dgs --machine.parallel
+            dp --machine.num-devices 1` for PAR_STEPS steps in a subprocess
+            (a group of one: NCCL on the card), whose losses must equal an
+            in-process one-device run's bit for bit; then two ranks sharing
+            the card over gloo (parallel/launch.py::spawn; NCCL refuses two
+            ranks on one card), each holding its modes against its own
+            one-device computation at full width: 3dgs dp with the same
+            camera on both ranks (xyz to 1e-5, denom twice), the band maps
+            of 3dgs, 2dgs (the rebased surfel map) and pgsr against the
+            full-frame render (each 2dgs pixel past the tolerance
+            witnessed by surfel_flips: a decision within float32 rounding
+            of its threshold), the merged gradients and screen-space
+            inputs of 3dgs band and gshard (each rank's slice), 2dgs band,
+            pgsr band on a two-camera step (observe counts summed exactly)
+            and octree-2dgs band and gshard (the MLP summed; the ranks
+            decode different numbers of visible anchors, so the gather is
+            padded); every rank must launch the six blend kernels of those
+            paths. Then each (method, mode) of PAR_TRAIN trains PAR_STEPS
+            steps; prints the median step of each rank (two ranks sharing
+            one card: not a scaling figure), one step's collectives, MiB
+            and ms (gloo stages CUDA tensors through the host), and each
+            rank's peak memory.
 4. report   all seven kernels against their plain versions again, at their
             main path's own inputs (the trained model, one of its cameras):
             the vanilla pair under the cotangent of its loss, the surfel
@@ -1232,6 +1255,635 @@ def phase_split(root, video_run, card_line):
           f"{launches}  | {card_line}", flush=True)
 
 
+# the parallel phase: the reference's tolerances (forward; gradients with
+# atol 2e-4 or, where larger, 2e-3 of the leaf's largest magnitude, as
+# gssr_tpu's tests/test_parallel.py::_grad_tree_close scales them: the
+# cross-rank sum reassociates each per-gaussian sum and the surfel map's
+# band rebase rounds differently), the one-rank NCCL run's steps, each
+# two-rank training run's steps, and the kernels every rank must launch
+PAR_STEPS = 8
+PAR_RANKS = 2
+PAR_METHODS = ("3dgs", "2dgs", "pgsr", "octree-2dgs")
+# (method, mode, first step): pgsr on its two-camera step, the anchor
+# statistics from step 3
+PAR_TRAIN = (("3dgs", "dp", 1), ("3dgs", "band", 1), ("3dgs", "gshard", 1),
+             ("2dgs", "band", 1), ("pgsr", "band", MULTI_VIEW_FROM + 1),
+             ("octree-2dgs", "band", 3), ("octree-2dgs", "gshard", 3))
+PAR_KERNELS = VANILLA_PAIR + SURFEL_PAIR + PLANAR_PAIR
+_NCCL_RUN = """
+import json, sys
+from gssr_tpu_torch import train
+from gssr_tpu_torch.configs.cli import parse_config
+trainer = train.main(parse_config(sys.argv[1:]))
+print("LOSSES " + json.dumps([h[1] for h in trainer.history]))
+"""
+
+
+def grads_close(got, want):
+    """max |got - want| and whether it is inside the gradient tolerance."""
+    err = (got - want).abs()
+    atol = max(BWD_TOL["atol"], BWD_TOL["rtol"] * float(want.abs().max())
+               if want.numel() else 0.0)
+    ok = bool((err <= atol + BWD_TOL["rtol"] * want.abs()).all())
+    return (float(err.max()) if err.numel() else 0.0), ok
+
+
+class StepSpy:
+    """The gradients a train step hands to Adam (after the cross-rank
+    merge) and its screen-space statistics inputs, caught while the spy is
+    on by wrapping the scene's Adam and statistics calls in this
+    process."""
+
+    def __init__(self, scene):
+        import gssr_tpu_torch.scene.scaffold as scaffold_mod
+        self.g, self.mod = scene.gaussians, scaffold_mod
+        self._adam = scaffold_mod.adam_update
+        self.anchors = hasattr(scene.state, "anchors")
+        self.grads, self.screen = {}, {}
+
+    def __enter__(self):
+        g, mod = self.g, self.mod
+        if self.anchors:
+            adam, stats = mod.adam_update, g.update_stats
+
+            def adam_update(params, grads, adam_state, lrs):
+                group = "mlp" if "anchors" in self.grads else "anchors"
+                self.grads[group] = dict(grads)
+                return adam(params, grads, adam_state, lrs)
+
+            def update_stats(st, op, mask, radii, m2d, *rest):
+                self.screen["mean2d"] = m2d
+                return stats(st, op, mask, radii, m2d, *rest)
+            mod.adam_update, g.update_stats = adam_update, update_stats
+            return self
+        step = g.adam_step
+
+        def adam_step(state, grads, lrs):
+            self.grads["params"] = dict(grads)
+            return step(state, grads, lrs)
+        g.adam_step = adam_step
+        if hasattr(g, "update_stats_pgsr"):
+            stats = g.update_stats_pgsr
+
+            def update_stats_pgsr(st, extra, radii, m2d, m2d_abs, obs, sc):
+                self.screen.update(mean2d=m2d, mean2d_abs=m2d_abs,
+                                   observe=obs)
+                return stats(st, extra, radii, m2d, m2d_abs, obs, sc)
+            g.update_stats_pgsr = update_stats_pgsr
+        else:
+            stats = g.update_stats
+
+            def update_stats(st, radii, m2d, sc):
+                self.screen["mean2d"] = m2d
+                return stats(st, radii, m2d, sc)
+            g.update_stats = update_stats
+        return self
+
+    def __exit__(self, *exc):
+        if self.anchors:
+            self.mod.adam_update = self._adam
+        for k in ("adam_step", "update_stats", "update_stats_pgsr"):
+            vars(self.g).pop(k, None)       # back to the class's
+
+
+def par_step(scene, mode, cam, step):
+    """One train step of the scene's initial state in `mode` ("none": one
+    process alone): (its StepSpy, metrics, new state in the step layout,
+    the step layout's initial state)."""
+    from gssr_tpu_torch.parallel.comm import Parallel
+    if mode == "none":
+        scene.parallel = Parallel()
+    else:
+        scene.setup_parallel(mode)
+    if hasattr(scene, "_near_draws"):
+        scene._near_draws = 0           # the same neighbour every time
+    state0 = scene.step_state(scene.state)
+    cams = [cam] * scene.parallel.world if mode == "dp" else cam
+    with StepSpy(scene) as spy:
+        state, metrics = scene.train_step(state0, cams, step)
+    scene.parallel = Parallel()
+    return spy, metrics, state, state0
+
+
+def par_build(method, scene_dir, out, dev, capacity=None):
+    """`method`'s scene with phase 3's options (and a capacity)."""
+    from gssr_tpu_torch.configs.cli import parse_config
+    from gssr_tpu_torch.configs.methods import build_scene
+    extra = [] if capacity is None else ["--scene.gaussians.capacity",
+                                         str(capacity)]
+    config = parse_config([method, "--source-path", scene_dir,
+                           "--output-path", out, "--machine.device",
+                           dev.type, *METHOD_ARGS[method], *extra])
+    return build_scene(config, dev)
+
+
+# the share of a surfel band map's elements allowed past FWD_TOL, and the
+# bound on the image, final_T and normal there: the band rebase of the
+# surfel map (ops/band.py::rebase_tmat) rounds the ray intersection
+# differently, so at full width a few pixels see a decision at a threshold
+# (the alpha >= 1/255 gate, the near plane, the T_EPS stop, the median's
+# T > 0.5) go the other way; a gate flip moves those maps by at most one
+# contribution at the gate, alpha 1/255. surfel_flips witnesses each such
+# pixel: its first differing decision lies within SURFEL_FLIP_REL of its
+# threshold in a float64 evaluation
+SURFEL_BAND_SHARE = 1e-4
+SURFEL_BAND_GATE = 1 / 255 + FWD_TOL["atol"]
+SURFEL_FLIP_REL = 1e-3
+
+
+class SurfelBlendSpy:
+    """Each surfel blend's packed instance attributes, binning and output
+    rows (ops/rasterize2d.py::blend2d) while the spy is on."""
+
+    def __init__(self):
+        import gssr_tpu_torch.ops.rasterize2d as mod
+        self.mod, self.inner, self.calls = mod, mod.blend2d, []
+
+    def __enter__(self):
+        from gssr_tpu_torch.ops.blend2d import pack_instance_attrs_2d
+
+        def blend2d(mean2d, Tmat, normal, color, opacity, binning, width,
+                    height):
+            maps = self.inner(mean2d, Tmat, normal, color, opacity, binning,
+                              width, height)
+            attrs = pack_instance_attrs_2d(mean2d, Tmat, normal, color,
+                                           opacity, binning)
+            self.calls.append((attrs, binning, maps.rows))
+            return maps
+        self.mod.blend2d = blend2d
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.blend2d = self.inner
+
+
+def surfel_pixel_walk(A, px, py, upto=0):
+    """The plain surfel forward (ops/blend2d.py) of one tile's instances A
+    [LIVE_ATTRS2, n] at pixels px, py [P], in A's dtype, up to the
+    instance after which T < T_EPS at every pixel (no later one
+    contributes), and at least `upto` instances: per instance and pixel [P, m] the alpha, its value
+    before the gate, depth, gate, T before it, contributing and median
+    candidate masks; per pixel the blended RGB, T, depth sum and median
+    depth (the kernel rows O_RGB, O_T, O_D, O_MED)."""
+    from gssr_tpu_torch.ops import blend2d as b2
+    from gssr_tpu_torch.ops.blend import T_EPS
+    sf = b2._surfel_alpha(A[:, None, :], px[None], py[None])
+    a = sf.a[0]
+    D, d_before = torch.ones_like(px), []
+    for i in range(a.shape[-1]):
+        d_before.append(D)
+        D = D * (1.0 - a[:, i])          # the kernels' order, one at a time
+        if i + 1 >= upto and bool((D < T_EPS).all()):
+            break
+    d_before = torch.stack(d_before, dim=-1)
+    m = d_before.shape[-1]
+    a, depth = a[:, :m], sf.depth[0][:, :m]
+    contrib = (a > 0.0) & (d_before * (1.0 - a) >= T_EPS)
+    w = torch.where(contrib, a * d_before, 0.0)
+    med = contrib & (d_before > 0.5)
+    last = torch.where(med, torch.arange(1, m + 1), 0).amax(-1)
+    med_depth = torch.where(
+        last > 0, depth.gather(-1, (last - 1).clamp(min=0)[:, None])[:, 0],
+        0.0)
+    return dict(a=a, raw=torch.clamp(sf.raw[0][:, :m], max=b2.ALPHA_MAX),
+                depth=depth, ok=sf.ok[0][:, :m], d_before=d_before,
+                contrib=contrib, med=med, last=last,
+                rgb=w @ A[b2.A_RGB:b2.A_RGB + 3, :m].T,
+                T=torch.where(contrib, 1.0 - a, 1.0).prod(-1),
+                dsum=(w * depth).sum(-1), med_depth=med_depth)
+
+
+@torch.no_grad()
+def surfel_flips(full, band, ty0, tiles_x, pixels):
+    """Witness the surfel band pixels past FWD_TOL (`pixels`, (y, x) in
+    this rank's band): for each, the full-frame and band instance lists of
+    its tile are the same; the plain forward reproduces both kernels'
+    rows there (so its decisions are theirs); and the first decision that
+    differs between them (a gate, the T_EPS stop or the median's T > 0.5)
+    lies within SURFEL_FLIP_REL of its threshold in a float64 evaluation
+    of the full-frame instances. Returns (flips by kind, the largest
+    float64 relative distance, and per pixel the bounds of the
+    median-depth difference, the gap between the two median picks' depths,
+    and of the expected depth's, 2 sum(alpha of the flipped) (depth spread)
+    / alpha of the pixel)."""
+    from collections import defaultdict
+
+    from gssr_tpu_torch.ops import blend2d as b2
+    from gssr_tpu_torch.ops.blend import ALPHA_MIN, T_EPS
+    from gssr_tpu_torch.ops.projection import TILE
+    cpu = torch.device("cpu")
+    (A_f, bin_f, rows_f), (A_b, bin_b, rows_b) = full, band
+    tiles = defaultdict(list)
+    for y, x in pixels:
+        tiles[(y // TILE, x // TILE)].append((y, x))
+    kinds = {"alpha gate": 0, "near plane": 0, "T_EPS stop": 0,
+             "median T > 0.5": 0}
+    worst, bounds = 0.0, {}
+    for (ty, tx), pix in sorted(tiles.items()):
+        runs = []
+        for bn, t in ((bin_f, ty * tiles_x + tx),
+                      (bin_b, (ty - ty0) * tiles_x + tx)):
+            lo, hi = (int(v) for v in bn.tile_ranges[t:t + 2])
+            runs.append((slice(lo, hi), torch.where(
+                bn.hit[lo:hi] > 0, bn.gauss_id[lo:hi], -1).to(cpu)))
+        assert torch.equal(runs[0][1], runs[1][1]), (ty, tx)
+        Af = A_f[:b2.LIVE_ATTRS2, runs[0][0]].to(cpu)
+        Ab = A_b[:b2.LIVE_ATTRS2, runs[1][0]].to(cpu)
+        ys = torch.tensor([y for y, _ in pix], dtype=torch.float32)
+        xs = torch.tensor([x for _, x in pix], dtype=torch.float32)
+        f = surfel_pixel_walk(Af, xs, ys)
+        b = surfel_pixel_walk(Ab, xs, ys - ty0 * TILE)
+        f64 = surfel_pixel_walk(Af.double(), xs.double(), ys.double(),
+                                upto=max(f["a"].shape[-1], b["a"].shape[-1]))
+        for j, (y, x) in enumerate(pix):
+            for ev, rows, yy in ((f, rows_f, y), (b, rows_b, y - ty0 * TILE)):
+                kern = rows[yy, x].to(cpu)
+                got = torch.cat([ev["rgb"][j], ev["T"][j:j + 1],
+                                 ev["dsum"][j:j + 1],
+                                 ev["med_depth"][j:j + 1]])
+                want = torch.cat([kern[b2.O_RGB:b2.O_RGB + 3],
+                                  kern[b2.O_T:b2.O_T + 1],
+                                  kern[b2.O_D:b2.O_D + 1],
+                                  torch.nan_to_num(kern[b2.O_MED:b2.O_MED
+                                                        + 1])])
+                assert torch.allclose(got, want, **FWD_TOL), (y, x, got, want)
+            m = min(f["a"].shape[-1], b["a"].shape[-1])
+            differ = ((f["ok"][j, :m] != b["ok"][j, :m])
+                      | (f["contrib"][j, :m] != b["contrib"][j, :m])
+                      | (f["med"][j, :m] != b["med"][j, :m]))
+            assert differ.any(), f"pixel {(y, x)}: no decision differs"
+            i = int(differ.nonzero()[0, 0])
+            rel = []
+            if bool(f["ok"][j, i] != b["ok"][j, i]):
+                if (f["raw"][j, i] >= ALPHA_MIN) != (b["raw"][j, i]
+                                                     >= ALPHA_MIN):
+                    kinds["alpha gate"] += 1
+                    rel.append(abs(float(f64["raw"][j, i]) - ALPHA_MIN)
+                               / ALPHA_MIN)
+                if (f["depth"][j, i] >= b2.NEAR_N) != (b["depth"][j, i]
+                                                       >= b2.NEAR_N):
+                    kinds["near plane"] += 1
+                    rel.append(abs(float(f64["depth"][j, i]) - b2.NEAR_N)
+                               / b2.NEAR_N)
+            elif bool(f["contrib"][j, i] != b["contrib"][j, i]):
+                kinds["T_EPS stop"] += 1
+                rel.append(abs(float(f64["d_before"][j, i]
+                                     * (1 - f64["a"][j, i])) - T_EPS) / T_EPS)
+            else:
+                kinds["median T > 0.5"] += 1
+                rel.append(abs(float(f64["d_before"][j, i]) - 0.5) / 0.5)
+            assert rel and min(rel) <= SURFEL_FLIP_REL, (y, x, i, rel)
+            worst = max(worst, min(rel))
+            # the bounds of the pixel's depth differences
+            picks = [int(ev["last"][j]) - 1 for ev in (f, b)]
+            gap = abs(float(f["depth"][j, picks[0]] if picks[0] >= 0 else 0.0)
+                      - float(b["depth"][j, picks[1]] if picks[1] >= 0
+                              else 0.0))
+            flipped = (f["ok"][j, :m] != b["ok"][j, :m]) | (
+                f["contrib"][j, :m] != b["contrib"][j, :m])
+            amax = torch.maximum(f["a"][j, :m], b["a"][j, :m])
+            dep = torch.cat([f["depth"][j][f["contrib"][j]],
+                             b["depth"][j][b["contrib"][j]]])
+            spread = float(dep.max() - dep.min()) if dep.numel() else 0.0
+            alpha = min(1 - float(f["T"][j]), 1 - float(b["T"][j]))
+            bounds[(y, x)] = (gap, 2 * float(amax[flipped].sum()) * spread
+                              / max(alpha, 1e-6))
+    return kinds, worst, bounds
+
+
+@torch.no_grad()
+def par_render_errs(scene, method, cam, par):
+    """(max |err|, elements past FWD_TOL) of each map of a banded render
+    against the one-device render of the scene's initial state: none past
+    it for the vanilla and planar payloads (their band shift of mean2d is
+    exact). For the surfel one at most SURFEL_BAND_SHARE of them, its
+    image, final_T and normal within SURFEL_BAND_GATE, each such pixel of
+    this rank's band witnessed by surfel_flips, and there its median depth
+    and surf_depth within their bounds."""
+    from gssr_tpu_torch.ops import band as band_ops
+    from gssr_tpu_torch.ops.projection import TILE
+    from gssr_tpu_torch.ops.rasterize import pad_to_tiles
+    st = scene.state
+    sh = scene.gaussians.active_sh_degree(STEPS)
+    kw = dict(forward_observe=False) if method == "pgsr" else {}
+    spy = SurfelBlendSpy() if method == "2dgs" else contextlib.nullcontext()
+    with spy:
+        one = scene.render_params(st.params, cam, sh, st.active,
+                                  scene.background, **kw)
+        band = scene.render_params(st.params, cam, sh, st.active,
+                                   scene.background, **kw, **par)
+    maps = {"3dgs": ("image", "final_T"),
+            "2dgs": ("image", "final_T", "normal", "surf_depth",
+                     "median_depth"),
+            "pgsr": ("image", "final_T", "normal", "plane_depth")}[method]
+    errs, past_px = {}, {}
+    for k in maps:
+        a, b = getattr(band, k), getattr(one, k)
+        past = ~torch.isclose(a, b, **FWD_TOL)
+        errs[k] = (max_err(a, b), int(past.sum()))
+        if method != "2dgs":
+            assert errs[k][1] == 0, (method, k, errs[k])
+            continue
+        assert errs[k][1] <= SURFEL_BAND_SHARE * a.numel(), (k, errs[k])
+        if k in ("image", "final_T", "normal"):
+            assert errs[k][0] <= SURFEL_BAND_GATE, (k, errs[k])
+        if past.ndim == 3:
+            past = past.any(-1)
+        past_px[k] = {tuple(v) for v in past.nonzero().tolist()}
+    if method != "2dgs":
+        return errs
+    ph = pad_to_tiles(scene.width, scene.height)[1]
+    band_ty, ty0 = band_ops.band_rows(ph, par["band_rank"],
+                                      par["band_count"])
+    mine = {(y, x) for s_ in past_px.values() for y, x in s_
+            if ty0 * TILE <= y < (ty0 + band_ty) * TILE}
+    kinds, worst, bounds = surfel_flips(
+        spy.calls[0], spy.calls[1], ty0,
+        pad_to_tiles(scene.width, scene.height)[0] // TILE, sorted(mine))
+    for k, col in (("median_depth", 0), ("surf_depth", 1)):
+        d = (getattr(band, k) - getattr(one, k)).abs()
+        for y, x in past_px[k] & mine:
+            lim = bounds[(y, x)][col] + FWD_TOL["atol"] \
+                + FWD_TOL["rtol"] * abs(float(getattr(one, k)[y, x]))
+            assert float(d[y, x]) <= lim, (k, y, x, float(d[y, x]), lim)
+    errs["witness"] = (worst, len(mine), kinds)
+    return errs
+
+
+def par_grad_errs(spy, ref, rows=None, world=1):
+    """max |err| of each merged gradient and screen-space input of `spy`
+    against the one-device `ref`'s; under gshard (`rows`: this rank's
+    slice of the capacity axis, one of `world`) against the slice of each
+    capacity-axis leaf, the replicated MLP whole. Asserts the gradient
+    tolerance, and equal observe counts."""
+    def mine(want, got):
+        if rows is None:
+            return want
+        n = rows.stop - rows.start
+        return want.reshape(n * world, -1)[rows].reshape(got.shape)
+    errs = {}
+    for group, grads in ref.grads.items():
+        for k, want in grads.items():
+            got = spy.grads[group][k]
+            if group != "mlp":
+                want = mine(want, got)
+            errs[f"{group}.{k}"], ok = grads_close(got, want)
+            assert ok, (group, k, errs[f"{group}.{k}"])
+    for k, want in ref.screen.items():
+        got = spy.screen[k]
+        want = mine(want, got)
+        if k == "observe":
+            assert torch.equal(got, want), "observe counts differ"
+            errs[k] = 0.0
+        else:
+            errs[k], ok = grads_close(got, want)
+            assert ok, (k, errs[k])
+    return errs
+
+
+class CollectiveClock:
+    """Host time and bytes of every all_reduce and all-gather (the bytes
+    of the reduced or gathered tensor) while it is on, each call
+    synchronised on both sides so that the time is the collective's."""
+    NAMES = ("all_reduce", "all_gather_into_tensor")
+
+    def __init__(self, dev):
+        import torch.distributed as dist
+        self.dist, self.dev = dist, dev
+        self.inner = {k: getattr(dist, k) for k in self.NAMES}
+        self.ms = self.bytes = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        def timed(fn):
+            def call(t, *a, **kw):
+                sync(self.dev)
+                t0 = time.perf_counter()
+                out = fn(t, *a, **kw)
+                sync(self.dev)
+                self.ms += 1e3 * (time.perf_counter() - t0)
+                self.bytes += t.numel() * t.element_size()
+                self.calls += 1
+                return out
+            return call
+        for k, fn in self.inner.items():
+            setattr(self.dist, k, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.inner.items():
+            setattr(self.dist, k, fn)
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def par_train(scene, mode, step0, steps, dev, rank, world):
+    """`steps` train steps of the scene in `mode` from its initial state
+    (dp: one camera per rank from the shared sequence), then one more
+    under the CollectiveClock: (step ms, collective ms, MiB and calls of
+    that step)."""
+    scene.setup_parallel(mode)
+    state = scene.step_state(scene.state)
+    times = []
+    for step in range(step0, step0 + steps + 1):
+        cams = [scene.dataloader.next_train()
+                for _ in range(world if mode == "dp" else 1)]
+        cam = cams if mode == "dp" else cams[0]
+        sync(dev)
+        t0 = time.perf_counter()
+        if step == step0 + steps:
+            with CollectiveClock(dev) as clock:
+                state, m = scene.train_step(state, cam, step)
+        else:
+            state, m = scene.train_step(state, cam, step)
+        state = scene.train_densify(state, step)
+        sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        assert math.isfinite(float(m["loss"])), (mode, step)
+    return times[:-1], clock.ms, clock.bytes / 2**20, clock.calls
+
+
+def parallel_rank(scene_dir, out_dir, device_type, steps):
+    """One rank of the two-rank phase (a process that spawn started, in a
+    gloo group whose ranks share the card): every check against this
+    process's own one-device computation, then `steps` steps of each
+    training run. Returns errors, counts, times and peak memory; rank 0
+    prints each stage's seconds."""
+    from gssr_tpu_torch.parallel import comm
+    dev = torch.device(device_type)
+    rank, world = comm.rank(), comm.world()
+    t0 = time.perf_counter()
+
+    def stage(what):
+        if rank == 0:
+            print(f"[parallel] rank 0: {what} at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert comm.backend() == "gloo" and world == PAR_RANKS
+    if dev.type == "cuda":
+        assert torch.cuda.current_device() == 0      # the ranks share it
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = {"rank": rank, "errs": {}, "train": {}, "active": {}}
+    out = f"{out_dir}/rank{rank}"
+    scenes = {m: par_build(m, scene_dir, out, dev) for m in PAR_METHODS}
+    # gshard splits the capacity axis into contiguous halves; at the
+    # presets' capacity (8x the points) every active row lies in rank 0's
+    # half, so gshard runs a capacity that just holds the initial model
+    # (its rows rounded up to 128 per rank): both ranks hold active rows
+    for m in ("3dgs", "octree-2dgs"):
+        unit = 128 * world
+        cap = -(-int(scenes[m].state.n_active) // unit) * unit
+        scenes[f"{m} gshard"] = par_build(m, scene_dir, out, dev, cap)
+    assert all(s.device.type == device_type for s in scenes.values())
+    stage("scenes built")
+    band = {"band_rank": rank, "band_count": world}
+    modes = {"3dgs": ("dp", "band"), "2dgs": ("band",), "pgsr": ("band",),
+             "octree-2dgs": ("band",), "3dgs gshard": ("gshard",),
+             "octree-2dgs gshard": ("gshard",)}
+    for key, scene in scenes.items():
+        method = key.split()[0]
+        step = {"pgsr": MULTI_VIEW_FROM + 1, "octree-2dgs": 3}.get(method, 1)
+        cam = scene.dataloader.train_cameras[0]
+        if key in ("3dgs", "2dgs", "pgsr"):
+            res["errs"][f"{method} band maps"] = par_render_errs(
+                scene, method, cam.arrays(dev), band)
+        ref, _, one, _ = par_step(scene, "none", cam, step)
+        if method == "pgsr":
+            assert ref.screen["observe"].max() > 0
+        for mode in modes[key]:
+            spy, metrics, state, state0 = par_step(scene, mode, cam, step)
+            assert math.isfinite(float(metrics["loss"]))
+            if mode == "dp":
+                # the same camera on both ranks: the mean of equal
+                # gradients is each of them; each rank's statistics delta
+                # adds (the camera counts twice)
+                e = max_err(state.params["xyz"], one.params["xyz"])
+                assert e <= 1e-5, e
+                assert torch.equal(state.stats["denom"],
+                                   2 * one.stats["denom"])
+                res["errs"]["3dgs dp"] = {"xyz": e, "denom x2": 0.0}
+                continue
+            rows = None
+            if mode == "gshard":
+                n = state0.active.shape[0]
+                rows = slice(rank * n, (rank + 1) * n)
+                res["active"][method] = (int(state0.active.sum()), n)
+            res["errs"][f"{method} {mode}"] = par_grad_errs(spy, ref, rows,
+                                                            world)
+            if method == "octree-2dgs" and mode == "gshard":
+                visible, _, _ = scene.visible_anchors(
+                    state0, cam.arrays(dev), step)
+                res["n_visible"] = int((visible & state0.active).sum())
+        stage(f"{key} checked")
+    for method, mode, step0 in PAR_TRAIN:
+        scene = scenes[f"{method} gshard" if mode == "gshard" else method]
+        res["train"][f"{method} {mode}"] = par_train(
+            scene, mode, step0, steps, dev, rank, world)
+        stage(f"{method} {mode} trained")
+    res["launches"] = read_counts()
+    if dev.type == "cuda":
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def phase_parallel(root, dev, card_line):
+    """The multi-device modes on the written scene: the one-rank NCCL run
+    through the CLI against a one-device run, then two ranks sharing the
+    card over gloo (parallel_rank)."""
+    from gssr_tpu_torch import train
+    from gssr_tpu_torch.configs.cli import parse_config
+    from gssr_tpu_torch.parallel.launch import backend_for, spawn
+    tag = "[parallel]"
+    scene_dir = os.path.join(root, "scene")
+    args = ["3dgs", "--source-path", scene_dir, "--output-path",
+            os.path.join(root, "par_out"), "--machine.device", dev.type,
+            "--trainer.iterations", str(PAR_STEPS),
+            "--trainer.log-interval", "1", *SH_ARGS]
+
+    # 1. one rank through the CLI, in a subprocess: NCCL on the card
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-c", _NCCL_RUN, *args, "--machine.parallel", "dp",
+         "--machine.num-devices", "1"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    assert p.returncode == 0, p.stdout[-4000:] + p.stderr[-4000:]
+    sub_s = time.perf_counter() - t0
+    line = [x for x in p.stdout.splitlines() if x.startswith("multi-device")]
+    want = f"over 1 ranks, backend {backend_for(dev.type)}"
+    assert len(line) == 1 and want in line[0], p.stdout[-4000:]
+    losses = json.loads([x for x in p.stdout.splitlines()
+                         if x.startswith("LOSSES ")][0][len("LOSSES "):])
+    single = [h[1] for h in train.main(parse_config(args)).history]
+    # a mean over one rank is the value itself: bit for bit (tolerance 0)
+    assert losses == single, (losses, single)
+    print(f"{tag} one rank through the CLI (`--machine.parallel dp "
+          f"--machine.num-devices 1`): {line[0]}; its {PAR_STEPS} losses "
+          f"equal the one-device run's bit for bit (tolerance 0): "
+          f"{[round(x, 6) for x in losses]}; {sub_s:.1f} s in its "
+          f"subprocess  | {card_line}", flush=True)
+
+    # 2. two ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as store:
+        out = spawn(parallel_rank, PAR_RANKS, "gloo", dev.type, store,
+                    (scene_dir, os.path.join(root, "par_ranks"), dev.type,
+                     PAR_STEPS))
+    spawn_s = time.perf_counter() - t0
+    assert [r["rank"] for r in out] == list(range(PAR_RANKS))
+    for r in out:
+        for k in PAR_KERNELS:
+            assert r["launches"][k] > 0, (r["rank"], k, r["launches"])
+        for case, errs in r["errs"].items():
+            wit = errs.pop("witness", None)
+            print(f"{tag} rank {r['rank']} {case}: max|err| " + ", ".join(
+                f"{k} {v:.3e}" if not isinstance(v, tuple) else
+                f"{k} {v[0]:.3e} ({v[1]} past tolerance)"
+                for k, v in errs.items()))
+            if wit is not None:
+                print(f"{tag} rank {r['rank']} {case}: {wit[1]} pixels of "
+                      f"its band past tolerance, each witnessed: the first "
+                      f"decision that differs, by kind {wit[2]}, lies within "
+                      f"{wit[0]:.3e} of its threshold (relative, float64; "
+                      f"bound {SURFEL_FLIP_REL}); median depth within the "
+                      f"depth gap of the two picks, surf_depth within 2 "
+                      f"sum(flipped alpha) x depth spread / alpha")
+    n_vis = [r["n_visible"] for r in out]
+    assert len(set(n_vis)) > 1, n_vis
+    for m in ("3dgs", "octree-2dgs"):
+        act = [r["active"][m] for r in out]
+        assert all(a > 0 for a, _ in act), (m, act)
+        print(f"{tag} {m} gshard: active rows of each rank's "
+              f"{act[0][1]} {[a for a, _ in act]}")
+    print(f"{tag} tolerances: maps atol {FWD_TOL['atol']} rtol "
+          f"{FWD_TOL['rtol']} (2dgs: at most {SURFEL_BAND_SHARE} of a map "
+          f"past it, its image, final_T and normal within "
+          f"{SURFEL_BAND_GATE:.5f}); gradients rtol {BWD_TOL['rtol']}, atol "
+          f"{BWD_TOL['atol']} or {BWD_TOL['rtol']} of the leaf's largest "
+          f"magnitude; observe counts exact; dp xyz atol 1e-5, denom x2 "
+          f"exact. octree-2dgs gshard visible anchors per rank {n_vis} "
+          f"(the gather padded to the larger)")
+    for case in out[0]["train"]:
+        step_ms = [statistics.median(r["train"][case][0]) for r in out]
+        coll = out[0]["train"][case][1:]
+        print(f"{tag} {case}: median step {step_ms[0]:.2f} / "
+              f"{step_ms[1]:.2f} ms (rank 0 / 1) over {PAR_STEPS} steps: "
+              f"two ranks sharing one card: not a scaling figure; one "
+              f"step's collectives {coll[2]}, {coll[1]:.1f} MiB, "
+              f"{coll[0]:.1f} ms (gloo, through the host)  | {card_line}",
+              flush=True)
+    print(f"{tag} peak memory per rank: "
+          + ", ".join(f"{r.get('peak_gib', float('nan')):.2f} GiB"
+                      for r in out)
+          + f"; launches per rank "
+          f"{[{k: r['launches'][k] for k in PAR_KERNELS} for r in out]}; "
+          f"the two "
+          f"ranks in {spawn_s:.1f} s  | {card_line}", flush=True)
+
+
 def phase_profile(trainer, path, card_line):
     """Three more train steps under torch.profiler: kernel time by name
     and the device's busy share of the window."""
@@ -1746,7 +2398,7 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
         inputs = pgsr_inputs(
             p["xyz"], scales, rots, g.get_opacity(p)[:, 0], color, normal,
             distance, cam, scene.width, scene.height, active=state.active)
-        near, near_gray = scene.near_for(cam_h)
+        near, near_gray = scene.near_for([cam_h])
         near_cam = near.arrays(dev)
         near_out = scene.render_params(p, near_cam, g.active_sh_degree(STEPS),
                                        state.active, scene.background,
@@ -1769,7 +2421,7 @@ def phase_report_scaffold_pgsr(trainer, launches, dev, card_line):
         inputs = pgsr_inputs(ng.xyz, ng.scaling, ng.rotation, ng.opacity,
                              ng.color, normal, distance, cam, scene.width,
                              scene.height, active=ng.mask)
-        near, near_gray = scene.near_for(cam_h)
+        near, near_gray = scene.near_for([cam_h])
         near_cam = near.arrays(dev)
         n_visible, n_gate, _ = scene.visible_anchors(state, near_cam, STEPS)
         _, near_out = scene.decode_and_render(
@@ -1945,6 +2597,9 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         phase_split(root, runs["2dgs"][0], card_line)
         print(f"[split] phase in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        phase_parallel(root, dev, card_line)
+        print(f"[parallel] phase in {time.perf_counter() - t1:.1f} s")
         if args.profile:
             stem, ext = os.path.splitext(args.profile)
             phase_profile(runs["3dgs"][0], args.profile, card_line)

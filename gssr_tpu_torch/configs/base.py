@@ -2,14 +2,14 @@
 
 Same shape and output-dir layout as the reference. Configs serialize as
 plain YAML data (dict tree + class names) and are rebuilt through the
-class registry of configs/methods.py. The multi-device fields
-(`parallel`, `num_devices`, `dist_init`) wait for the scale-out slice;
-`machine.device` picks the torch device.
+class registry of configs/methods.py. `machine.device` picks the torch
+device; the multi-device fields (`parallel`, `num_devices`, `dist_init`)
+are the reference's, run over torch.distributed (parallel/launch.py).
 
 `load_config_yaml` also reads a config.yml that gssr_tpu wrote. The
 fields the port has no counterpart for (FOREIGN_FIELDS) are dropped with
 one printed note each, and a value of one that would change what the
-port computes (several devices) raises, naming the field.
+port computes raises, naming the field.
 """
 from __future__ import annotations
 
@@ -31,6 +31,18 @@ class MachineConfig:
     host_rank: int = 0
     # "cuda" (the card; raises if there is none) or "cpu"
     device: str = "cuda"
+    # multi-device training mode: "none" | "dp" (one camera per rank,
+    # gradients averaged) | "band" (one camera, its tile rows split over
+    # the ranks) | "gshard" (the gaussian or anchor state split 1/D per
+    # rank). One process per device (parallel/launch.py).
+    parallel: str = "none"
+    # ranks of the parallel mode: without a launcher, the ranks the CLI
+    # starts itself (0 = every local card; 1 on the CPU); with one, it
+    # must equal the group's size
+    num_devices: int = 0
+    # bring up torch.distributed at launch; also triggered by the
+    # GSSR_COORDINATOR / GSSR_NUM_PROCESSES or torchrun environment
+    dist_init: bool = False
 
     def torch_device(self) -> torch.device:
         dev = torch.device(self.device)
@@ -165,8 +177,6 @@ def save_config_yaml(config: Config, path):
 # per step; the reference grows its budget whenever it overflows).
 _SCENE_FIELDS = {"instance_cap": None, "backend": ("pallas", "reference")}
 FOREIGN_FIELDS = {
-    "MachineConfig": {"parallel": ("none",), "num_devices": (0, 1),
-                      "dist_init": (False,)},
     "TrainerConfig": {"scan_block": None},
     "VanillaSceneConfig": _SCENE_FIELDS,
     "TwoDGSSceneConfig": _SCENE_FIELDS,
@@ -195,7 +205,7 @@ def _drop_foreign(name: str, node: dict) -> dict:
         if allowed is not None and v not in allowed:
             raise ValueError(
                 f"config field {name}.{k} = {v!r} is not supported by "
-                f"gssr_tpu_torch (single device only; it takes "
+                f"gssr_tpu_torch (it takes "
                 f"{', '.join(map(repr, allowed))})")
         print(f"config: dropped gssr_tpu field {name}.{k} "
               f"(no counterpart in gssr_tpu_torch)")

@@ -10,6 +10,14 @@ Checkpoints are .npz files with the state leaves in gssr_tpu's order
 (`leaf_i`, see models/convert.py; the scene converts its own state) plus
 the scene's aux arrays (`aux_i`), so a gssr_tpu checkpoint loads into the
 port.
+
+With `machine.parallel` set, every rank of the torch.distributed group
+runs this loop (parallel/launch.py): setup calls the scene's
+setup_parallel, a dp step draws one camera per rank from the shared
+sequence and rank r trains the r-th, and only rank 0 logs and writes
+(the others wait at a barrier after each write). Under gshard the loop
+holds the scene's sharded layout; evaluation and saving see the whole
+state.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 
 from gssr_tpu_torch.configs.base import Config
 from gssr_tpu_torch.engine.callbacks import TrainingCallbackLocation
+from gssr_tpu_torch.parallel import comm
 
 
 def host_metrics(metrics: dict) -> dict:
@@ -41,12 +50,16 @@ class Trainer:
     def __init__(self, config: Config, scene=None):
         self.config = config
         self.device = config.machine.torch_device()
+        # rank 0 of a multi-device run logs and writes; the others wait
+        self.multi = config.machine.parallel != "none"
+        self.main = comm.writes(config.machine.parallel)
         base_dir = config.get_base_dir()
-        base_dir.mkdir(parents=True, exist_ok=True)
+        if self.main:
+            base_dir.mkdir(parents=True, exist_ok=True)
         self.gaussian_dir = config.get_gaussian_dir()
         self.ckpt_dir = config.get_checkpoint_dir()
         self.writer = None
-        if config.writer == "tensorboard":
+        if config.writer == "tensorboard" and self.main:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
@@ -71,19 +84,39 @@ class Trainer:
             self._load_gaussians()
         if t.load_ckpt_dir is not None:
             self._load_checkpoint()
+        m = self.config.machine
+        if self.multi:
+            world = comm.world()
+            if m.num_devices and m.num_devices != world:
+                raise ValueError(f"machine.num_devices {m.num_devices} but "
+                                 f"the group has {world} ranks")
+            self.scene.setup_parallel(m.parallel)
+            self._print(f"multi-device: mode={m.parallel} over {world} "
+                        f"ranks, backend {comm.backend()}")
+
+    def _print(self, *args):
+        if self.main:
+            print(*args, flush=True)
+
+    def sync(self):
+        """The other ranks of a multi-device run wait for rank 0's write."""
+        if self.multi:
+            comm.barrier()
 
     # ------------------------------------------------------------------
     def train(self):
         scene = self.scene
         tcfg = self.config.trainer
-        state = scene.state
+        par = scene.parallel
+        state = scene.step_state(scene.state)
         log_interval = max(1, tcfg.log_interval)
         t0 = time.perf_counter()
         ema_loss = None
         mpix_acc = 0.0
 
         profiler = None
-        profile_steps = tcfg.profile_steps if tcfg.profile_dir else []
+        profile_steps = tcfg.profile_steps \
+            if tcfg.profile_dir and self.main else []
 
         for step in range(self.start_step + 1, tcfg.iterations + 1):
             if profile_steps and step == profile_steps[0]:
@@ -91,9 +124,13 @@ class Trainer:
             for cb in self.callbacks:
                 cb.run_callback_at_location(
                     step, TrainingCallbackLocation.BEFORE_TRAIN_ITERATION)
-            camera = scene.dataloader.next_train()
-            mpix_acc += camera.width * camera.height / 1e6
-            state, metrics = scene.train_step(state, camera, step)
+            # dp: one camera per rank from the shared sequence, the step
+            # takes them all and trains its own
+            cams = [scene.dataloader.next_train()
+                    for _ in range(par.world if par.mode == "dp" else 1)]
+            mpix_acc += sum(c.width * c.height for c in cams) / 1e6
+            state, metrics = scene.train_step(
+                state, cams if par.mode == "dp" else cams[0], step)
             if profiler is not None and len(profile_steps) > 1 \
                     and step == profile_steps[1]:
                 self._stop_profiler(profiler)
@@ -111,25 +148,26 @@ class Trainer:
                 self._scalars("train", m, step)
             if step % (log_interval * 50) == 0:
                 dt = max(time.perf_counter() - t0, 1e-9)
-                print(f"step {step:6d}  loss "
-                      f"{-1.0 if ema_loss is None else ema_loss:.4f}  "
-                      f"n_active {int(state.n_active)}  "
-                      f"{(step - self.start_step) / dt:.1f} it/s  "
-                      f"{mpix_acc / dt:.2f} Mpix/s")
+                self._print(f"step {step:6d}  loss "
+                            f"{-1.0 if ema_loss is None else ema_loss:.4f}  "
+                            f"n_active {int(state.n_active)}  "
+                            f"{(step - self.start_step) / dt:.1f} it/s  "
+                            f"{mpix_acc / dt:.2f} Mpix/s")
                 self._scalars("perf", {"mpix_per_s": mpix_acc / dt}, step)
 
             if step in tcfg.test_iterations:
-                ev = self.evals[step] = scene.evaluate(state, step)
-                print(f"[eval {step}] " + "  ".join(
+                ev = self.evals[step] = scene.evaluate(
+                    scene.full_state(state), step)
+                self._print(f"[eval {step}] " + "  ".join(
                     f"{k}={v:.4f}" for k, v in ev.items()))
                 self._scalars("eval", ev, step)
             if step in tcfg.save_iterations:
-                self.save_gaussians(state, step)
+                self.save_gaussians(scene.full_state(state), step)
 
-            state = scene.densify(state, step)
+            state = scene.train_densify(state, step)
 
             if step in tcfg.checkpoint_iterations:
-                self.save_checkpoint(state, step)
+                self.save_checkpoint(scene.full_state(state), step)
             for cb in self.callbacks:
                 cb.run_callback_at_location(
                     step, TrainingCallbackLocation.AFTER_TRAIN_ITERATION)
@@ -138,8 +176,8 @@ class Trainer:
             self._stop_profiler(profiler)
         if self.writer is not None:
             self.writer.flush()
-        scene.state = state
-        return state
+        scene.state = scene.full_state(state)
+        return scene.state
 
     def _scalars(self, group: str, values: dict, step: int):
         if self.writer is not None:
@@ -170,12 +208,19 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save_gaussians(self, state, step: int):
-        d = self.gaussian_dir / f"iteration_{step}"
-        d.mkdir(parents=True, exist_ok=True)
-        self.scene.save_gaussians(state, str(d / "point_cloud.ply"))
-        print(f"saved gaussians to {d}")
+        if self.main:
+            d = self.gaussian_dir / f"iteration_{step}"
+            d.mkdir(parents=True, exist_ok=True)
+            self.scene.save_gaussians(state, str(d / "point_cloud.ply"))
+            print(f"saved gaussians to {d}")
+        self.sync()
 
     def save_checkpoint(self, state, step: int):
+        if self.main:
+            self._write_checkpoint(state, step)
+        self.sync()
+
+    def _write_checkpoint(self, state, step: int):
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         path = self.ckpt_dir / f"ckpt_{step:07d}.npz"
         leaves = self.scene.state_to_numpy(state)
@@ -207,7 +252,7 @@ class Trainer:
             if n_aux:
                 self.scene.restore_aux([data[f"aux_{i}"]
                                         for i in range(n_aux)])
-        print(f"resumed from {path} at step {self.start_step}")
+        self._print(f"resumed from {path} at step {self.start_step}")
 
     def _load_gaussians(self):
         t = self.config.trainer
@@ -221,4 +266,4 @@ class Trainer:
             step = max(iters)
         path = d / f"iteration_{step}" / "point_cloud.ply"
         self.scene.state = self.scene.load_gaussians(str(path))
-        print(f"loaded gaussians from {path}")
+        self._print(f"loaded gaussians from {path}")

@@ -19,6 +19,7 @@ from gssr_tpu_torch.models.vanilla import (
     VanillaGaussianConfig,
     VanillaGaussians,
 )
+from gssr_tpu_torch.parallel import comm
 
 # the reference's extra-stats keys, in the order jax.tree flattens them
 EXTRA_NAMES = ("denom_abs", "grad_accum_abs", "max_weight")
@@ -85,6 +86,17 @@ class PGSRGaussians(VanillaGaussians):
             "max_weight": extra["max_weight"],
         }
         return new_stats, new_extra
+
+    @staticmethod
+    def dp_merge_extra(old, local):
+        """The abs-gradient statistics after a dp step: the sums add the
+        ranks' deltas, max_weight reduces directly."""
+        d_grad, d_denom = comm.all_reduce_many(
+            [local["grad_accum_abs"] - old["grad_accum_abs"],
+             local["denom_abs"] - old["denom_abs"]])
+        return {"grad_accum_abs": old["grad_accum_abs"] + d_grad,
+                "denom_abs": old["denom_abs"] + d_denom,
+                "max_weight": comm.all_reduce(local["max_weight"], "max")}
 
     @staticmethod
     def _budget_reselect(sel, grads, n_active, budget):

@@ -31,6 +31,7 @@ from gssr_tpu_torch.ops.voxel import (
     segment_max_sorted,
     voxelize_points_host,
 )
+from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.utils.general import expon_lr
 
 ANCHOR_NAMES = ("anchor", "offset", "feat", "scaling", "rotation", "opacity")
@@ -373,6 +374,13 @@ class ScaffoldGaussians:
 
         return (back(ng.neural_opacity), back(ng.mask), back(radii),
                 back(mean2d_grad))
+
+    @staticmethod
+    def dp_merge_stats(old, local):
+        """The statistics after a dp step: every field is a running sum,
+        so each adds the ranks' deltas."""
+        deltas = comm.all_reduce_many([local[k] - old[k] for k in STAT_NAMES])
+        return {k: old[k] + d for k, d in zip(STAT_NAMES, deltas)}
 
     def update_stats(self, stats, neural_opacity, mask, radii, mean2d_grad,
                      visible_mask, active, grad_scale):

@@ -17,6 +17,7 @@ import torch
 
 from gssr_tpu_torch.ops.knn import mean_knn_dist2_host
 from gssr_tpu_torch.ops.sh import rgb_to_sh
+from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.utils.general import (
     expon_lr,
     inverse_sigmoid,
@@ -222,6 +223,18 @@ class VanillaGaussians:
             "denom": torch.where(visible, stats["denom"] + 1.0,
                                  stats["denom"]),
         }
+
+    @staticmethod
+    def dp_merge_stats(old, local):
+        """The statistics after a dp step: each rank accumulated its own
+        camera's delta on top of `old`; the sums add the deltas over the
+        ranks, the radius maximum reduces directly."""
+        d_grad, d_denom = comm.all_reduce_many(
+            [local["grad_accum"] - old["grad_accum"],
+             local["denom"] - old["denom"]])
+        return {"max_radii2d": comm.all_reduce(local["max_radii2d"], "max"),
+                "grad_accum": old["grad_accum"] + d_grad,
+                "denom": old["denom"] + d_denom}
 
     def densify_and_prune(self, state: GaussianState, use_size_prune: bool,
                           generator: Optional[torch.Generator] = None,

@@ -25,7 +25,7 @@ All index math here is non-differentiable; callers pass detached inputs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -66,7 +66,8 @@ def _scatter_drop(target, pos, vals, reduce=None):
 
 
 def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
-                  tile_mask=None, chunk: int = 128) -> Binning:
+                  tile_mask=None, chunk: int = 128,
+                  key_tiles: Optional[int] = None) -> Binning:
     """Build the depth-sorted, chunk-padded per-tile instance list.
 
     rect: [N,4] int32 tile rects (exclusive max); depth: [N] float32
@@ -74,7 +75,10 @@ def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
     tile_mask: [N] int32 exact ellipse-tile bits over the first 32 rect
     tiles (non-hit rect slots become hit = 0 no-op lanes), or None: every
     rect slot of a real instance is a hit (the 2DGS path). Fillers get
-    hit = 0 either way.
+    hit = 0 either way. key_tiles: the tile count whose bit width the sort
+    key gives the tile id (default tiles_x * tiles_y); a band of a frame
+    passes the frame's, so that its depths quantize as the frame's do and
+    its instances sort in the frame's order.
     """
     dev = depth.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -82,7 +86,7 @@ def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
     n = depth.shape[0]
     assert tiles_x <= 1024, "rect pack field overflow"
     assert n < (1 << 29), "gaussian capacity exceeds payload index bits"
-    tile_bits = max(1, int(num_tiles + 1).bit_length())
+    tile_bits = max(1, int((key_tiles or num_tiles) + 1).bit_length())
     depth_bits = 32 - tile_bits
     sign = -(2 ** 31)
 

@@ -462,6 +462,7 @@ class SurfelMaps:
     """Column views of the blended output [H, W, OUT2_ROWS]."""
 
     def __init__(self, rows):
+        self.rows = rows
         self.color = rows[..., O_RGB:O_RGB + 3]
         self.final_T = rows[..., O_T]
         self.depth_exp = rows[..., O_D]

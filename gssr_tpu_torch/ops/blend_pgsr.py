@@ -296,6 +296,7 @@ class PlanarMaps:
     (the reference's row 0 of its [8, I] observe output), else None."""
 
     def __init__(self, rows, observe_inst=None):
+        self.rows = rows
         self.color = rows[..., PO_RGB:PO_RGB + 3]
         self.final_T = rows[..., PO_T]
         self.normal = rows[..., PO_NRM:PO_NRM + 3]

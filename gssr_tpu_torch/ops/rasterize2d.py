@@ -9,6 +9,12 @@ gssr_tpu/ops/rasterize2d.py):
 
 Screen-space (mean2d) gradients for the densification statistics come
 from the zero-valued `mean2d_offset` hook.
+
+The multi-device branches are ops/rasterize.py's. In band mode the
+surfel's homogeneous splat-to-pixel map is rebased to band-local rows
+(ops/band.py::rebase_tmat) beside the shifted mean2d; under gaussian
+sharding mean2d, the map, normal, depth, rect, tiles, colour and opacity
+are gathered.
 """
 from __future__ import annotations
 
@@ -16,13 +22,14 @@ from typing import NamedTuple
 
 import torch
 
+from gssr_tpu_torch.ops import band as band_ops
 from gssr_tpu_torch.ops import sh as sh_ops
-from gssr_tpu_torch.ops.binning import bin_gaussians
 from gssr_tpu_torch.ops.blend import CHUNK
 from gssr_tpu_torch.ops.blend2d import SurfelMaps, blend2d
 from gssr_tpu_torch.ops.projection import TILE
 from gssr_tpu_torch.ops.projection2d import preprocess_2d
 from gssr_tpu_torch.ops.rasterize import pad_to_tiles
+from gssr_tpu_torch.parallel import comm
 
 
 class Render2DOutput(NamedTuple):
@@ -70,15 +77,18 @@ def rasterize_2d(means3d, scales2, rotations, opacity, camera, width: int,
                  height: int, bg, sh_coeffs=None, sh_degree: int = 0,
                  colors_precomp=None, active_mask=None,
                  scaling_modifier: float = 1.0, depth_ratio: float = 0.0,
-                 mean2d_offset=None) -> Render2DOutput:
+                 mean2d_offset=None, band_rank=None, band_count: int = 1,
+                 gauss_shard: bool = False) -> Render2DOutput:
     """Render surfels through one camera (a CameraArrays).
 
     means3d [N,3], scales2 [N,2] (activated), rotations [N,4] quaternions,
     opacity [N] (activated). Exactly one of sh_coeffs [N,K,3] and
     colors_precomp [N,3]. The maps are rendered on the TILE-padded grid
     and cropped to width x height. mean2d_offset: a zero [N,2] tensor
-    whose gradient is dL/dmean2d.
+    whose gradient is dL/dmean2d. band_rank / band_count and gauss_shard:
+    ops/rasterize.py's multi-device branches.
     """
+    band_ops.check_modes(band_rank, gauss_shard)
     pw, ph = pad_to_tiles(width, height)
     opacity = opacity.reshape(-1)
     proj = preprocess_2d(means3d, scales2, rotations, camera, pw, ph,
@@ -93,13 +103,27 @@ def rasterize_2d(means3d, scales2, rotations, opacity, camera, width: int,
         color = sh_ops.sh_to_color(sh_degree, sh_coeffs, means3d,
                                    camera.campos)
 
-    binning = bin_gaussians(proj.rect, proj.depth.detach(),
-                            proj.tiles_touched, pw // TILE, ph // TILE,
-                            chunk=CHUNK)
-    maps = blend2d(mean2d, proj.Tmat, proj.normal, color, opacity, binning,
-                   pw, ph)
+    mean2d_local = mean2d
+    Tmat, normal = proj.Tmat, proj.normal
+    depth, rect, tiles = proj.depth.detach(), proj.rect, proj.tiles_touched
+    if gauss_shard:
+        mean2d, Tmat, normal, color, opacity = comm.gather_shard_cols(
+            [mean2d, Tmat, normal, color, opacity])
+        depth, rect, tiles = comm.all_gather_cols([depth, rect, tiles])
+    binning, mean2d, tiles_y, ty0 = band_ops.bin_band(
+        rect, depth, tiles, None, mean2d, pw, ph, band_rank, band_count,
+        CHUNK)
+    if band_rank is not None:
+        Tmat = band_ops.rebase_tmat(Tmat, ty0)
+    maps = blend2d(mean2d, Tmat, normal, color, opacity, binning, pw,
+                   tiles_y * TILE)
+    num_rendered, overflow = binning.num_rendered, binning.overflow
+    if band_rank is not None:
+        rows, num_rendered, overflow = band_ops.gather_band(maps.rows,
+                                                            binning)
+        maps = SurfelMaps(rows)
 
     return Render2DOutput(
         **surfel_outputs(maps, camera, width, height, bg, depth_ratio),
-        radii=proj.radius, mean2d=mean2d,
-        num_rendered=binning.num_rendered, overflow=binning.overflow)
+        radii=proj.radius, mean2d=mean2d_local,
+        num_rendered=num_rendered, overflow=overflow)

@@ -17,6 +17,11 @@ observe counts (the backward kernel writes them whatever the cotangent).
 A render that returns `observe` as a forward output launches the observe
 kernel; a training render passes forward_observe=False and reads the
 counts from the gradient of `observe_offset` instead.
+
+Band mode is ops/rasterize.py's (there is no gaussian sharding for the
+planar payload, as in gssr_tpu): the observe counts are band-partial, so
+the forward ones are summed over the ranks here and the backward's by the
+scene's gradient merge.
 """
 from __future__ import annotations
 
@@ -24,12 +29,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gssr_tpu_torch.ops import band as band_ops
 from gssr_tpu_torch.ops import sh as sh_ops
-from gssr_tpu_torch.ops.binning import bin_gaussians
 from gssr_tpu_torch.ops.blend import CHUNK, segment_sum_sorted
 from gssr_tpu_torch.ops.blend_pgsr import PlanarMaps, blend_pgsr
 from gssr_tpu_torch.ops.projection import TILE, preprocess
 from gssr_tpu_torch.ops.rasterize import pad_to_tiles
+from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.utils.general import quat_to_rotmat
 
 
@@ -108,7 +114,8 @@ def rasterize_pgsr(means3d, scales, rotations, opacity, camera, width: int,
                    colors_precomp=None, active_mask=None,
                    scaling_modifier: float = 1.0, mean2d_offset=None,
                    mean2d_abs_offset=None, observe_offset=None,
-                   forward_observe: bool = True) -> RenderPGSROutput:
+                   forward_observe: bool = True, band_rank=None,
+                   band_count: int = 1) -> RenderPGSROutput:
     """Render gaussians with their planar maps through one camera (a
     CameraArrays).
 
@@ -118,7 +125,8 @@ def rasterize_pgsr(means3d, scales, rotations, opacity, camera, width: int,
     and cropped to width x height. mean2d_offset, mean2d_abs_offset [N,2]
     and observe_offset [N,1] are zero tensors whose gradients carry the
     statistics of the module docstring. `observe` is None unless
-    forward_observe."""
+    forward_observe. band_rank / band_count: the module docstring's band
+    mode."""
     pw, ph = pad_to_tiles(width, height)
     opacity = opacity.reshape(-1)
     proj = preprocess(means3d, scales, rotations, camera, pw, ph, opacity,
@@ -138,19 +146,26 @@ def rasterize_pgsr(means3d, scales, rotations, opacity, camera, width: int,
                                    camera.campos)
 
     normal_c, distance = planar_geometry(means3d, scales, rotations, camera)
-    binning = bin_gaussians(proj.rect, proj.depth.detach(),
-                            proj.tiles_touched, pw // TILE, ph // TILE,
-                            proj.tile_mask, chunk=CHUNK)
+    binning, mean2d, tiles_y, _ = band_ops.bin_band(
+        proj.rect, proj.depth.detach(), proj.tiles_touched, proj.tile_mask,
+        mean2d, pw, ph, band_rank, band_count, CHUNK)
     maps = blend_pgsr(mean2d, proj.conic, color, opacity, normal_c, distance,
-                      observe_offset, mean2d_abs_offset, binning, pw, ph,
-                      forward_observe=forward_observe)
+                      observe_offset, mean2d_abs_offset, binning, pw,
+                      tiles_y * TILE, forward_observe=forward_observe)
     observe = None
     if forward_observe:
         # per-gaussian sums of the slot counts; fillers reduce to nothing
         observe = segment_sum_sorted(maps.observe_inst[:, None],
                                      binning.gid_reduce,
                                      binning.seg_bounds)[:, 0]
+    num_rendered, overflow = binning.num_rendered, binning.overflow
+    if band_rank is not None:
+        rows, num_rendered, overflow = band_ops.gather_band(maps.rows,
+                                                            binning)
+        maps = PlanarMaps(rows)
+        if observe is not None:
+            observe = comm.all_reduce(observe)
     return RenderPGSROutput(
         **planar_outputs(maps, camera, width, height, bg), observe=observe,
         radii=proj.radius, mean2d=proj.mean2d,
-        num_rendered=binning.num_rendered, overflow=binning.overflow)
+        num_rendered=num_rendered, overflow=overflow)

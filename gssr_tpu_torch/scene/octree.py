@@ -39,6 +39,7 @@ class OctreeSceneConfig(ScaffoldSceneConfig):
 
 class OctreeScene(ScaffoldScene):
     config: OctreeSceneConfig
+    SHARDED = ScaffoldScene.SHARDED + ("level", "extra_level")
 
     def make_gaussians(self) -> OctreeGaussians:
         return OctreeGaussians(
@@ -59,14 +60,15 @@ class OctreeScene(ScaffoldScene):
         return self.gaussians.pred_int_level(state, camera.campos, step,
                                              is_training)
 
+    def densify_due(self, step: int) -> bool:
+        return self.config.gaussians.update_anchor and \
+            super().densify_due(step)
+
     def densify(self, state: OctreeState, step: int) -> OctreeState:
         """adjust_anchor_octree on the reference's schedule (it draws
         nothing); anchor_log's entries also hold the active anchors per
         level after it."""
-        cfg = self.config.gaussians
-        if (cfg.update_anchor
-                and cfg.densify_from_iter < step < cfg.densify_until_iter
-                and step % cfg.densification_interval == 0):
+        if self.densify_due(step):
             before = state.active
             with torch.no_grad():
                 state = self.gaussians.adjust_anchor_octree(state, step)

@@ -11,8 +11,14 @@ plane homography. Only the reference render feeds the densification
 statistics: the abs screen gradients and the observe counts come from the
 backward kernel through the render's zero-valued hooks.
 
-The reference's K-step scan blocks and multi-device modes have no
-counterpart here (see scene/vanilla.py).
+The reference's K-step scan blocks have no counterpart here (see
+scene/vanilla.py). Its dp and band modes are vanilla.py's, band through
+both renders of the two-camera step: the abs screen gradients are
+averaged as the others, the band-partial observe counts (which do not
+scale with the cotangent) summed over the ranks. A dp step draws a
+neighbour for every rank's camera in rank order, as the reference draws
+its batch's, and renders its own; gshard is not wired through the PGSR
+step (nor is it in gssr_tpu).
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from gssr_tpu_torch.ops.sampling import (
     patch_warp,
     rgb_to_gray,
 )
+from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.scene.vanilla import VanillaScene, VanillaSceneConfig
 
 GRAY_CACHE_FRAMES = 32
@@ -94,10 +101,16 @@ class PGSRScene(VanillaScene):
         return PGSRGaussians(self.config.gaussians,
                              spatial_lr_scale=self.cameras_extent)
 
+    def gshard_capacity(self) -> int:
+        raise NotImplementedError(
+            "gshard is not wired through the PGSR multi-view step; use dp "
+            "or band for the pgsr family")
+
     # ------------------------------------------------------------------
     def render_params(self, params, camera, sh_degree: int, active, bg,
                       mean2d_offset=None, mean2d_abs_offset=None,
-                      observe_offset=None, forward_observe: bool = True):
+                      observe_offset=None, forward_observe: bool = True,
+                      **par):
         g = self.gaussians
         return rasterize_pgsr(
             params["xyz"], g.get_scaling(params), g.get_rotation(params),
@@ -105,7 +118,8 @@ class PGSRScene(VanillaScene):
             sh_coeffs=g.get_features(params), sh_degree=sh_degree,
             active_mask=active, scaling_modifier=self.config.scaling_modifier,
             mean2d_offset=mean2d_offset, mean2d_abs_offset=mean2d_abs_offset,
-            observe_offset=observe_offset, forward_observe=forward_observe)
+            observe_offset=observe_offset, forward_observe=forward_observe,
+            **par)
 
     @staticmethod
     def depth_normal(plane_depth, alpha, camera):
@@ -225,11 +239,19 @@ class PGSRScene(VanillaScene):
         self._near_draws += 1
         return r.choice(list(ids))
 
-    def near_for(self, camera):
-        """The neighbour drawn for `camera` and its grayscale frame on the
-        device, through a bounded LRU so a frame is uploaded once."""
+    def multi_view(self, cams, step: int) -> bool:
+        """Whether the step on `cams` (step_cameras) renders neighbours:
+        past multi_view_from, when every camera of the step has one."""
+        return step > self.config.multi_view_from and all(
+            len(c.near_ids) > 0 for c in cams)
+
+    def near_for(self, cams):
+        """A neighbour drawn for each camera of the step `cams`
+        (step_cameras), in order: this rank's and its grayscale frame on
+        the device, through a bounded LRU so a frame is uploaded once."""
+        picks = [self.key_host_choice(c.near_ids) for c in cams]
         near = self.dataloader.train_cameras[
-            self.key_host_choice(camera.near_ids)]
+            picks[self.parallel.rank if self.parallel.mode == "dp" else 0]]
         gray = self._gray_cache.pop(near.uid, None)
         if gray is None:
             gray = rgb_to_gray(torch.as_tensor(
@@ -242,14 +264,15 @@ class PGSRScene(VanillaScene):
     def train_step(self, state: GaussianState, camera, step: int):
         """One step: the reference render (and past multi_view_from a
         neighbour's render), the losses, backward, Adam and the
-        statistics. Returns (new state, metrics as 0-d tensors)."""
+        statistics, on `camera` (in dp the list of every rank's,
+        step_cameras). Returns (new state, metrics as 0-d tensors)."""
+        cams, camera = self.step_cameras(camera)
         g = self.gaussians
-        cfg = self.config
         sh_degree = g.active_sh_degree(step)
         cam = camera.arrays(self.device)
         gt = self.gt_device(camera)
         bg = self.get_background()
-        multi = step > cfg.multi_view_from and len(camera.near_ids) > 0
+        multi = self.multi_view(cams, step)
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         zeros = state.params["xyz"].new_zeros
@@ -257,15 +280,16 @@ class PGSRScene(VanillaScene):
         hooks = [zeros((n, 2)).requires_grad_(True),
                  zeros((n, 2)).requires_grad_(True),
                  zeros((n, 1)).requires_grad_(True)]
+        par = self.render_par()
         out = self.render_params(params, cam, sh_degree, state.active, bg,
-                                 *hooks, forward_observe=False)
+                                 *hooks, forward_observe=False, **par)
         terms = self.loss_terms(out, gt, step, cam)
         if multi:
-            near, near_gray = self.near_for(camera)
+            near, near_gray = self.near_for(cams)
             near_cam = near.arrays(self.device)
             near_out = self.render_params(params, near_cam, sh_degree,
                                           state.active, bg,
-                                          forward_observe=False)
+                                          forward_observe=False, **par)
             terms.update(self.multi_view_terms(out, near_out, cam, near_cam,
                                                gt, near_gray, step))
         loss = sum(terms.values())
@@ -273,18 +297,34 @@ class PGSRScene(VanillaScene):
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if gr is None else gr
                  for x, gr in zip(inputs, grads)]
+        grads = (self.merge_grads(grads[:-3])
+                 + self.merge_screen_grads(grads[-3:-1])
+                 + self.merge_counts(grads[-1:]))
         m2d_g, m2d_abs_g, obs_g = grads[-3:]
         with torch.no_grad():
             new_state = g.adam_step(state, dict(zip(PARAM_NAMES, grads)),
                                     g.learning_rates(step))
+            extra = self.extra_stats
             new_state.stats, self.extra_stats = g.update_stats_pgsr(
-                state.stats, self.extra_stats, out.radii, m2d_g, m2d_abs_g,
+                state.stats, extra, out.radii, m2d_g, m2d_abs_g,
                 obs_g[:, 0], g.ndc_grad_scale(self.width, self.height,
                                               self.device))
+            if self.parallel.mode == "dp":
+                new_state.stats = g.dp_merge_stats(state.stats,
+                                                   new_state.stats)
+                self.extra_stats = g.dp_merge_extra(extra, self.extra_stats)
         metrics = {k: v.detach() for k, v in terms.items()}
         metrics.update(loss=loss.detach(), num_rendered=out.num_rendered,
                        overflow=out.overflow)
-        return new_state, metrics
+        return new_state, self.merge_metrics(metrics)
+
+    def merge_counts(self, counts) -> list:
+        """The backward's observe counts: band-partial in band mode, and
+        independent of the cotangent's scale, so summed over the ranks (the
+        reference's psum); a rank's own otherwise."""
+        if self.parallel.mode == "band":
+            return comm.all_reduce_many(counts)
+        return list(counts)
 
     # ------------------------------------------------------------------
     def densify_and_prune(self, state: GaussianState, use_size_prune: bool,

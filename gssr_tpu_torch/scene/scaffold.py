@@ -15,6 +15,13 @@ decode_and_render, _rasterize_neural, extra_losses, scaling_loss,
 anchor_level_gate) are the reference's, for the octree and anchor-surfel
 scenes to override; step_terms lets the planar anchor scenes add a
 neighbour's render to a step.
+
+The multi-device modes are scene/vanilla.py's. Under gshard the anchor
+state is sharded and the MLP replicated: its gradient, which saw only
+this rank's anchors, is summed over the ranks, and the scaling loss's
+masked mean takes the global sum and count. The ranks decode different
+numbers of visible anchors, so the gather of their neural gaussians is
+padded to the largest count (render_neural).
 """
 from __future__ import annotations
 
@@ -41,7 +48,12 @@ from gssr_tpu_torch.models.scaffold import (
 from gssr_tpu_torch.models.vanilla import adam_update
 from gssr_tpu_torch.ops.projection import preprocess
 from gssr_tpu_torch.ops.rasterize import pad_to_tiles, rasterize
+from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.scene.vanilla import VanillaScene, VanillaSceneConfig
+
+# a filler neural gaussian of a padded gshard gather: a dead vanilla
+# slot's geometry (scaling exp(-10), the identity rotation), masked off
+_FILLER = {"scaling": float(np.exp(-10.0)), "rotation": (1.0, 0.0, 0.0, 0.0)}
 
 
 @dataclasses.dataclass
@@ -53,6 +65,10 @@ class ScaffoldSceneConfig(VanillaSceneConfig):
 
 class ScaffoldScene(VanillaScene):
     config: ScaffoldSceneConfig
+    # gshard splits the anchors, their Adam moments and statistics; the
+    # MLP, its Adam state and Adam's counts are replicated
+    SHARDED = ("anchors", "adam_anchor.m", "adam_anchor.v", "stats",
+               "active")
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -81,39 +97,77 @@ class ScaffoldScene(VanillaScene):
         return proj.radius > 0
 
     def decode_and_render(self, anchors, mlp, camera, cam_uid: int, visible,
-                          active, bg, level_scale_gate=None):
+                          active, bg, level_scale_gate=None, **par):
         ng = self.gaussians.decode(anchors, mlp, camera.campos, cam_uid,
                                    visible, active,
                                    level_scale_gate=level_scale_gate)
-        return ng, self._rasterize_neural(ng, camera, bg)
+        return ng, self.render_neural(ng, camera, bg, **par)
 
-    def _rasterize_neural(self, ng, camera, bg, mean2d_offset=None):
+    def render_neural(self, ng, camera, bg, mean2d_offset=None, **par):
+        """_rasterize_neural with the rasterizer's multi-device arguments
+        `par` (render_par). Under gshard each rank pads its neural
+        gaussians to the largest count over the ranks (one all_reduce MAX)
+        with masked-off fillers, so that the gathers line up; the returned
+        radii and mean2d are this rank's own rows."""
+        if not par.get("gauss_shard"):
+            return self._rasterize_neural(ng, camera, bg, mean2d_offset,
+                                          **par)
+        n = ng.xyz.shape[0]
+        n_max = int(comm.all_reduce(torch.tensor(n, device=ng.xyz.device),
+                                    "max"))
+
+        def pad(x, fill=0.0):
+            tail = x.new_empty((n_max - n,) + tuple(x.shape[1:]))
+            tail[:] = torch.as_tensor(fill, dtype=x.dtype)
+            return torch.cat([x, tail])
+
+        padded = ng._replace(
+            xyz=pad(ng.xyz), color=pad(ng.color), opacity=pad(ng.opacity),
+            scaling=pad(ng.scaling, _FILLER["scaling"]),
+            rotation=pad(ng.rotation, _FILLER["rotation"]),
+            mask=pad(ng.mask, False))
+        if mean2d_offset is not None:
+            mean2d_offset = pad(mean2d_offset)
+        out = self._rasterize_neural(padded, camera, bg, mean2d_offset,
+                                     **par)
+        return out._replace(radii=out.radii[:n], mean2d=out.mean2d[:n])
+
+    def _rasterize_neural(self, ng, camera, bg, mean2d_offset=None, **par):
         return rasterize(
             ng.xyz, ng.scaling, ng.rotation, ng.opacity, camera, self.width,
             self.height, bg, colors_precomp=ng.color, active_mask=ng.mask,
             scaling_modifier=self.config.scaling_modifier,
-            mean2d_offset=mean2d_offset)
+            mean2d_offset=mean2d_offset, **par)
 
     def extra_losses(self, ng, out, step: int, camera) -> Dict[str, object]:
         return {"scaling_loss": self.scaling_loss(ng)}
 
     def step_terms(self, state, anchors, mlp, ng, out, gt, bg, step: int,
-                   camera, cam) -> Dict[str, object]:
+                   camera, cam, cams) -> Dict[str, object]:
         """The losses of a train step: the image losses and extra_losses of
         the render `out` (over background bg) of the neural gaussians `ng`
         decoded from anchors and mlp for `camera` (a host Camera; cam its
-        CameraArrays). The planar anchor scenes add a neighbour's
-        render."""
+        CameraArrays; cams every camera of the step, step_cameras). The
+        planar anchor scenes add a neighbour's render."""
         terms = self.loss_terms(out, gt, step, cam)
         terms.update(self.extra_losses(ng, out, step, cam))
         return terms
 
     def scaling_loss(self, ng, dims: int = 3):
         """lambda_scaling times the mean, over the decoded gaussians that
-        render, of the product of their first `dims` scales."""
+        render, of the product of their first `dims` scales.
+
+        Under gshard `ng` is this rank's anchor shard: the mean takes the
+        sum and count over the ranks, the collective outside autograd with
+        the local summand re-added, so that each rank differentiates
+        exactly its own shard's part (and the loss stays replicated, as
+        the rasterizer's gather contract needs)."""
         s = torch.where(ng.mask, torch.prod(ng.scaling[:, :dims], dim=-1),
                         torch.zeros_like(ng.opacity)).sum()
         cnt = ng.mask.sum().float()
+        if self.parallel.mode == "gshard":
+            s = s + (comm.all_reduce(s) - s.detach())
+            cnt = comm.all_reduce(cnt)
         return self.config.lambda_scaling * s / torch.clamp(cnt, min=1.0)
 
     def anchor_level_gate(self, state, camera, step, is_training=True):
@@ -138,7 +192,9 @@ class ScaffoldScene(VanillaScene):
     def train_step(self, state: ScaffoldState, camera, step: int):
         """One step: prefilter, decode, render, L1 + D-SSIM + scaling loss,
         backward into anchors and MLP, Adam on both, statistics inside
-        the window. Returns (new state, metrics as 0-d tensors)."""
+        the window, on `camera` (in dp the list of every rank's,
+        step_cameras). Returns (new state, metrics as 0-d tensors)."""
+        cams, camera = self.step_cameras(camera)
         g = self.gaussians
         cfg = self.config.gaussians
         cam = camera.arrays(self.device)
@@ -156,10 +212,10 @@ class ScaffoldScene(VanillaScene):
                           state.active, level_scale_gate=gate)
         m2d_offset = torch.zeros_like(ng.xyz[:, :2], requires_grad=True)
         with record_function("scaffold.render_and_loss"):
-            out = self._rasterize_neural(ng, cam, bg,
-                                         mean2d_offset=m2d_offset)
+            out = self.render_neural(ng, cam, bg, mean2d_offset=m2d_offset,
+                                     **self.render_par())
             terms = self.step_terms(state, anchors, mlp, ng, out, gt, bg,
-                                    step, camera, cam)
+                                    step, camera, cam, cams)
             loss = sum(terms.values())
         inputs = ([anchors[k] for k in ANCHOR_NAMES]
                   + [mlp[k] for k in MLP_NAMES] + [m2d_offset])
@@ -168,6 +224,9 @@ class ScaffoldScene(VanillaScene):
         grads = [torch.zeros_like(x) if gr is None else gr
                  for x, gr in zip(inputs, grads)]
         na = len(ANCHOR_NAMES)
+        grads = (self.merge_grads(grads[:na])
+                 + self.merge_grads(grads[na:-1], shared=True)
+                 + self.merge_screen_grads(grads[-1:]))
         with torch.no_grad(), record_function("scaffold.adam"):
             a_lrs, m_lrs = g.learning_rates(step)
             new_anchors, adam_a = adam_update(
@@ -185,6 +244,8 @@ class ScaffoldScene(VanillaScene):
                                                   cap),
                     visible, state.active,
                     g.ndc_grad_scale(self.width, self.height, self.device))
+                if self.parallel.mode == "dp":
+                    stats = g.dp_merge_stats(state.stats, stats)
         new_state = dataclasses.replace(
             state, anchors=new_anchors, mlp=new_mlp, adam_anchor=adam_a,
             adam_mlp=adam_m, stats=stats)
@@ -193,17 +254,20 @@ class ScaffoldScene(VanillaScene):
                        overflow=out.overflow,
                        n_visible=torch.tensor(ng.anchor_idx.shape[0]),
                        n_neural=ng.mask.sum(), n_lod_dropped=lod_dropped)
-        return new_state, metrics
+        return new_state, self.merge_metrics(metrics)
 
     # ------------------------------------------------------------------
+    def densify_due(self, step: int) -> bool:
+        cfg = self.config.gaussians
+        return (cfg.densify_from_iter < step < cfg.densify_until_iter
+                and step % cfg.densification_interval == 0)
+
     def densify(self, state: ScaffoldState, step: int,
                 rands=None) -> ScaffoldState:
         """adjust_anchor on the reference's schedule. `rands` replaces its
         uniform draws, one [CA, K] per level (tests inject the
         reference's)."""
-        cfg = self.config.gaussians
-        if (cfg.densify_from_iter < step < cfg.densify_until_iter
-                and step % cfg.densification_interval == 0):
+        if self.densify_due(step):
             before = state.active
             with torch.no_grad():
                 state = self.gaussians.adjust_anchor(

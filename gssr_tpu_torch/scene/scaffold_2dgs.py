@@ -27,13 +27,14 @@ class AnchorSurfels:
     """The surfel render and losses of an anchor scene (scaffold or
     octree); its config has lambda_dist, lambda_normal and depth_ratio."""
 
-    def _rasterize_neural(self, ng, camera, bg, mean2d_offset=None):
+    def _rasterize_neural(self, ng, camera, bg, mean2d_offset=None, **par):
         return rasterize_2d(
             ng.xyz, ng.scaling[:, :2], ng.rotation, ng.opacity, camera,
             self.width, self.height, bg, colors_precomp=ng.color,
             active_mask=ng.mask,
             scaling_modifier=self.config.scaling_modifier,
-            depth_ratio=self.config.depth_ratio, mean2d_offset=mean2d_offset)
+            depth_ratio=self.config.depth_ratio, mean2d_offset=mean2d_offset,
+            **par)
 
     def extra_losses(self, ng, out, step: int, camera):
         terms = surfel_reg_losses(out, camera, step,

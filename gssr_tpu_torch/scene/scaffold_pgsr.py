@@ -8,7 +8,9 @@ also decodes and renders a neighbour camera drawn from the camera's
 `near_ids`, with its own prefilter and level gate, and adds PGSR's normal,
 geo and NCC losses (scene/pgsr.py, whose helpers this scene borrows as the
 reference does). The anchor statistics come from the reference render
-alone, and densification stays the anchor scene's.
+alone, and densification stays the anchor scene's. dp and band run as in
+scene/scaffold.py, band through both renders; gshard is not wired through
+the planar step (nor is it in gssr_tpu).
 """
 from __future__ import annotations
 
@@ -59,8 +61,14 @@ class ScaffoldPGSRScene(ScaffoldScene):
     _multi_view_losses = PGSRScene._multi_view_losses
     key_host_choice = PGSRScene.key_host_choice
     near_for = PGSRScene.near_for
+    multi_view = PGSRScene.multi_view
 
-    def _rasterize_neural(self, ng, camera, bg, mean2d_offset=None):
+    def gshard_capacity(self) -> int:
+        raise NotImplementedError(
+            "gshard is not wired through the PGSR multi-view step; use dp "
+            "or band for the pgsr family")
+
+    def _rasterize_neural(self, ng, camera, bg, mean2d_offset=None, **par):
         """Nothing reads a render's observe counts here (the anchor
         statistics are the scaffold's), so no render launches the observe
         kernel."""
@@ -68,23 +76,23 @@ class ScaffoldPGSRScene(ScaffoldScene):
             ng.xyz, ng.scaling, ng.rotation, ng.opacity, camera, self.width,
             self.height, bg, colors_precomp=ng.color, active_mask=ng.mask,
             scaling_modifier=self.config.scaling_modifier,
-            mean2d_offset=mean2d_offset, forward_observe=False)
+            mean2d_offset=mean2d_offset, forward_observe=False, **par)
 
     def step_terms(self, state, anchors, mlp, ng, out, gt, bg, step: int,
-                   camera, cam) -> Dict[str, object]:
+                   camera, cam, cams) -> Dict[str, object]:
         """L1, D-SSIM and the scaling loss; past multi_view_from, for a
         camera with neighbours, also the normal, geo and NCC losses against
         a drawn neighbour's render of the same anchors and MLP."""
         terms = super().step_terms(state, anchors, mlp, ng, out, gt, bg,
-                                   step, camera, cam)
-        if step > self.config.multi_view_from and len(camera.near_ids) > 0:
-            near, near_gray = self.near_for(camera)
+                                   step, camera, cam, cams)
+        if self.multi_view(cams, step):
+            near, near_gray = self.near_for(cams)
             near_cam = near.arrays(self.device)
             n_visible, n_gate, _ = self.visible_anchors(state, near_cam,
                                                         step)
             _, near_out = self.decode_and_render(
                 anchors, mlp, near_cam, near.uid, n_visible, state.active, bg,
-                level_scale_gate=n_gate)
+                level_scale_gate=n_gate, **self.render_par())
             terms.update(self.multi_view_terms(out, near_out, cam, near_cam,
                                                gt, near_gray, step))
         return terms

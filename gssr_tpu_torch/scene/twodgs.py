@@ -75,14 +75,15 @@ class TwoDGSScene(VanillaScene):
                              spatial_lr_scale=self.cameras_extent)
 
     def render_params(self, params, camera, sh_degree: int, active, bg,
-                      mean2d_offset=None):
+                      mean2d_offset=None, **par):
         g = self.gaussians
         return rasterize_2d(
             params["xyz"], g.get_scaling(params), g.get_rotation(params),
             g.get_opacity(params)[:, 0], camera, self.width, self.height, bg,
             sh_coeffs=g.get_features(params), sh_degree=sh_degree,
             active_mask=active, scaling_modifier=self.config.scaling_modifier,
-            depth_ratio=self.config.depth_ratio, mean2d_offset=mean2d_offset)
+            depth_ratio=self.config.depth_ratio, mean2d_offset=mean2d_offset,
+            **par)
 
     def loss_terms(self, out, gt, step: int, camera):
         terms = super().loss_terms(out, gt, step, camera)

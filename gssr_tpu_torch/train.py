@@ -12,10 +12,21 @@ card and without that flag it stops with an error.
 
 re-runs a saved config (the port's or gssr_tpu's) under a fresh run
 directory, on the device this command names.
+
+    python -m gssr_tpu_torch.train 3dgs --source-path S \
+        --machine.parallel dp|band|gshard --machine.num-devices N \
+        [--machine.device cpu]
+
+trains on N ranks, one process per card (NCCL; on the CPU gloo), which
+this command starts itself; under torchrun, or with the GSSR_COORDINATOR /
+GSSR_NUM_PROCESSES / GSSR_PROCESS_ID environment, each launched process
+is one rank instead (parallel/launch.py). Rank 0 writes the run.
 """
 from __future__ import annotations
 
 import random
+import tempfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,9 +34,12 @@ import torch
 from gssr_tpu_torch.configs.base import Config, load_config_yaml
 from gssr_tpu_torch.configs.cli import parse_config
 from gssr_tpu_torch.engine.trainer import Trainer
+from gssr_tpu_torch.parallel import comm, launch
 
 
-def main(config: Config) -> Trainer:
+def main(config: Config) -> Optional[Trainer]:
+    """Train the config's run. Returns the trainer, or None where this
+    process started the ranks of a multi-device run itself."""
     if config.trainer.load_config:
         # re-run a saved config under a fresh timestamped run dir, on the
         # device this command names
@@ -37,17 +51,53 @@ def main(config: Config) -> Trainer:
     if not config.source_path:
         raise SystemExit(
             "error: --source-path is required (a COLMAP scene directory)")
-    config.machine.torch_device()          # fail early without a card
-    config.set_timestamp()
+    m = config.machine
+    m.torch_device()                        # fail early without a card
+    config.set_timestamp()                  # before the ranks start: shared
+    owned = False
+    if not launch.maybe_initialize_distributed(m) and m.parallel != "none":
+        cuda = torch.device(m.device).type == "cuda"
+        n = m.num_devices or (torch.cuda.device_count() if cuda else 1)
+        if cuda and n > torch.cuda.device_count():
+            raise SystemExit(
+                f"error: {n} ranks need {n} cards (NCCL takes one card a "
+                f"rank); this machine has {torch.cuda.device_count()}")
+        if n > 1:
+            with tempfile.TemporaryDirectory() as store:
+                launch.spawn(train_rank, n, launch.backend_for(m.device),
+                             m.device, store, (config,))
+            return None
+        launch.init_group_of_one(m)
+        owned = True
+    try:
+        return _train(config)
+    finally:
+        if owned:
+            launch.shutdown_distributed()
+
+
+def train_rank(config: Config) -> list:
+    """One rank of a run that spawn started: its losses at the log
+    points."""
+    config.machine.num_hosts = comm.world()
+    config.machine.host_rank = comm.rank()
+    return [h[1] for h in _train(config).history]
+
+
+def _train(config: Config) -> Trainer:
     random.seed(config.machine.seed)
     np.random.seed(config.machine.seed)
     torch.manual_seed(config.machine.seed)
-    config.save_config()
+    writes = comm.writes(config.machine.parallel)
+    if writes:
+        config.save_config()
     trainer = Trainer(config)
     trainer.setup()
     trainer.train()
-    (config.get_base_dir() / "DONE").write_text(
-        f"iterations={config.trainer.iterations}\n")
+    if writes:
+        (config.get_base_dir() / "DONE").write_text(
+            f"iterations={config.trainer.iterations}\n")
+    trainer.sync()
     return trainer
 
 

@@ -6,7 +6,9 @@
 
 S holds the tile_XXXX/ directories that `python -m
 gssr_tpu_torch.split_scene` wrote. Tile t is trained when t % N == R, so
-N processes (one per host or card) share the tiles; each tile's run is
+N processes (one per host or card) share the tiles; under torchrun or
+the GSSR_* environment of parallel/launch.py, N and R are the group's
+world size and rank. Each tile's run is
 O/<experiment>/tile_XXXX/<method>/<timestamp>/. A tile whose earlier run
 of this method has a DONE marker is skipped unless --retrain true.
 Runs on the CUDA card unless --machine.device cpu is given; without a
@@ -24,6 +26,7 @@ import torch
 
 from gssr_tpu_torch import train
 from gssr_tpu_torch.configs.cli import parse_config
+from gssr_tpu_torch.parallel.launch import maybe_initialize_distributed
 
 
 def main(argv: Optional[List[str]] = None,
@@ -39,6 +42,11 @@ def main(argv: Optional[List[str]] = None,
     if not tiles:
         raise SystemExit(f"error: no tile_* dirs under {config.source_path}")
     device = config.machine.torch_device()          # fail early without a card
+    if config.machine.parallel != "none":
+        raise SystemExit("error: train_split stripes whole tiles over the "
+                         "processes; --machine.parallel is train's")
+    # striping from the group when a launcher started one
+    maybe_initialize_distributed(config.machine)
     n_hosts = max(config.machine.num_hosts, 1)
     rank = config.machine.host_rank
     config.set_experiment_name()

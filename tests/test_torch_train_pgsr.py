@@ -251,8 +251,12 @@ def test_train_reads_a_gssr_tpu_pgsr_run(gssr_tpu_run, capsys):
         ["pgsr", "--trainer.load-config", str(cfg), "--machine.device",
          "cpu"]))
     notes = capsys.readouterr().out
-    assert "dropped gssr_tpu field MachineConfig.num_devices" in notes
+    # the port has no K-step scan blocks; it runs the multi-device fields,
+    # which load with their values
+    assert "dropped gssr_tpu field TrainerConfig.scan_block" in notes
+    assert "MachineConfig" not in notes
     config = trainer.config
+    assert config.machine.parallel == "none"
     assert config.machine.device == "cpu"
     assert config.method_name == "pgsr"
     run_dir = config.get_base_dir()
