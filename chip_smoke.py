@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port, gssr_tpu_torch, on one CUDA card.
 
-    python3 chip_smoke.py [--profile FILE] [--yardstick DIR]
+    python3 chip_smoke.py [--profile FILE] [--yardstick DIR] [--convergence]
 
 Phases; any failure exits non-zero, and nothing is caught and passed over:
 
@@ -109,7 +109,18 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             steps; prints the median step of each rank (two ranks sharing
             one card: not a scaling figure), one step's collectives, MiB
             and ms (gloo stages CUDA tensors through the host), and each
-            rank's peak memory.
+            rank's peak memory. Then train_split over several devices a
+            tile, on the split phase's two tiles, PAR_STEPS steps a tile:
+            `python -m gssr_tpu_torch.train_split octree-2dgs
+            --machine.parallel band --machine.num-devices 1` in a
+            subprocess (NCCL), each tile's losses equal to an in-process
+            one-device train_split's bit for bit; then two ranks sharing
+            the card over gloo, each running train_split in band and in
+            gshard (both ranks train both tiles; rank 0 writes each tile's
+            run once, one config.yml and one DONE; a second call skips both
+            tiles on both ranks; every rank launches the surfel forward and
+            backward kernels on every tile), printing each tile's median
+            step and peak memory per rank (not a scaling figure).
 4. report   all seven kernels against their plain versions again, at their
             main path's own inputs (the trained model, one of its cameras):
             the vanilla pair under the cotangent of its loss, the surfel
@@ -140,6 +151,23 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             Prints the {"kernels": [...]} line, the card, and last the
             {"ok": true, "device": {...}} line.
 
+--convergence adds, after the report, the port's long run held against
+gssr_tpu's records (benchmarks/results/convergence_r5.json): gssr_tpu's
+structured scene (benchmarks/convergence.py, copied here: a ground plane,
+three spheres and a box of 29,500 gaussians, 54 orbit views at 400x304
+rendered by the port's rasterize, a sparse init of 1/12 of the means)
+written as a COLMAP scene; `python -m gssr_tpu_torch.train octree-2dgs`
+and `... pgsr` for 2,400 steps each with that script's flags (--eval true,
+an eval every 150 steps, densify until step 1,200, its capacities; pgsr
+two-camera from step 1,200), each meshed by `python -m
+gssr_tpu_torch.extract_mesh` (voxel 0.02, sdf_trunc 0.08, depth_trunc 8)
+and scored with utils/mesh_eval.py against the scene's means (200,000
+samples, seed 0). It prints the eval PSNR curve, the saved PLY's count,
+the mesh's precision, recall and F1 at 0.03 and 0.05 and the seconds,
+and fails unless each method's mean eval PSNR over steps 2100-2400 lies
+at most CONV_PSNR_BELOW dB below the record's and its f1@0.05 at most
+CONV_F1_BELOW below.
+
 --profile FILE adds three profiled train steps to five paths after phase 3
 and writes torch.profiler's per-kernel tables to FILE (3dgs) and to FILE
 with `_2dgs`, `_pgsr`, `_scaffold` and `_octree2dgs` before its suffix;
@@ -155,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import io
 import json
 import math
@@ -1106,12 +1135,12 @@ def observe_saving(trainer, card_line):
 # split: VastGaussian partitioned training and merged meshing
 # ---------------------------------------------------------------------------
 
-def split_args(split, runs):
+def split_args(split, runs, steps=STEPS):
     """train_split's arguments: the octree-2dgs path's own, on the tiles."""
     return [SPLIT_METHOD, "--source-path", split, "--output-path", runs,
-            "--trainer.iterations", str(STEPS),
-            "--trainer.test-iterations", str(STEPS),
-            "--trainer.save-iterations", str(STEPS),
+            "--trainer.iterations", str(steps),
+            "--trainer.test-iterations", str(steps),
+            "--trainer.save-iterations", str(steps),
             "--trainer.log-interval", "1",
             "--scene.gaussians.densify-from-iter", "10",
             "--scene.gaussians.densification-interval", "10",
@@ -1270,12 +1299,27 @@ PAR_TRAIN = (("3dgs", "dp", 1), ("3dgs", "band", 1), ("3dgs", "gshard", 1),
              ("2dgs", "band", 1), ("pgsr", "band", MULTI_VIEW_FROM + 1),
              ("octree-2dgs", "band", 3), ("octree-2dgs", "gshard", 3))
 PAR_KERNELS = VANILLA_PAIR + SURFEL_PAIR + PLANAR_PAIR
+# the kernels every rank must launch on every tile of the multi-device
+# train_split (octree-2dgs)
+PAR_SPLIT_KERNELS = SURFEL_PAIR
 _NCCL_RUN = """
 import json, sys
 from gssr_tpu_torch import train
 from gssr_tpu_torch.configs.cli import parse_config
 trainer = train.main(parse_config(sys.argv[1:]))
 print("LOSSES " + json.dumps([h[1] for h in trainer.history]))
+"""
+
+_NCCL_SPLIT = """
+import json, os, sys
+from gssr_tpu_torch import train, train_split
+losses = {}
+def tile(config):
+    trainer = train.main(config)
+    losses[os.path.basename(config.source_path)] = [
+        h[1] for h in trainer.history]
+train_split.main(sys.argv[1:], train_tile=tile)
+print("TILE_LOSSES " + json.dumps(losses))
 """
 
 
@@ -1882,6 +1926,489 @@ def phase_parallel(root, dev, card_line):
           f"{[{k: r['launches'][k] for k in PAR_KERNELS} for r in out]}; "
           f"the two "
           f"ranks in {spawn_s:.1f} s  | {card_line}", flush=True)
+
+
+def split_tiles_run(argv, dev):
+    """train_split with `argv` on this rank of the group that is up (a
+    rank of the two-rank phase): the tiles trained and skipped, and per
+    trained tile its step times, the peak memory above what the rank held
+    at the tile's start, its losses and its kernel launches."""
+    from gssr_tpu_torch import train, train_split
+    cuda = dev.type == "cuda"
+    tiles = {}
+
+    def tile(config):
+        sync(dev)
+        start = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        trainer = train.main(config)
+        sync(dev)
+        hist = trainer.history
+        assert len(hist) == PAR_STEPS and \
+            all(math.isfinite(h[1]) for h in hist), hist
+        peak = torch.cuda.max_memory_allocated() if cuda else start
+        tiles[os.path.basename(config.source_path)] = dict(
+            step_ms=[1e3 * (b[3] - a[3]) for a, b in zip(hist, hist[1:])],
+            peak_gib=(peak - start) / 2**30, losses=[h[1] for h in hist],
+            launches=read_counts())
+    trained, skipped = train_split.main(argv, train_tile=tile)
+    return trained, skipped, tiles
+
+
+def split_rank(split, runs, device_type):
+    """One rank of the two-rank train_split check: band, then band again
+    (every tile done), then gshard and gshard again, all in this group."""
+    from gssr_tpu_torch.parallel import comm
+    assert comm.backend() == "gloo" and comm.world() == PAR_RANKS
+    out = {"rank": comm.rank()}
+    for mode in ("band", "gshard"):
+        argv = split_args(split, os.path.join(runs, mode), PAR_STEPS) + [
+            "--machine.device", device_type, "--machine.parallel", mode,
+            "--machine.num-devices", str(PAR_RANKS)]
+        dev = torch.device(device_type)
+        out[mode] = split_tiles_run(argv, dev)
+        out[f"{mode} again"] = split_tiles_run(argv, dev)
+    return out
+
+
+def phase_parallel_split(root, dev, card_line):
+    """train_split over several devices per tile, on the split phase's two
+    tiles: one rank through the CLI in a subprocess (NCCL), its losses
+    against an in-process one-device train_split, bit for bit; then two
+    ranks sharing the card over gloo in band and in gshard, each training
+    both tiles, rank 0 writing each tile's run once, and a second call
+    skipping both tiles on both ranks."""
+    from gssr_tpu_torch import train, train_split
+    from gssr_tpu_torch.parallel.launch import backend_for, spawn
+    tag = "[parallel split]"
+    split = os.path.join(root, "split")
+    tiles = sorted(os.path.basename(t) for t in
+                   glob.glob(os.path.join(split, "tile_*")))
+    assert len(tiles) == 2, tiles
+    # every run below reads the points3D.ply that the split phase's first
+    # read of each tile wrote (from points3D.bin's float64 points): the
+    # same initial state in every process
+    for t in tiles:
+        assert os.path.exists(os.path.join(split, t, "sparse/0/points3D.ply"))
+
+    # 1. one rank through the CLI, in a subprocess: NCCL on the card
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-c", _NCCL_SPLIT,
+         *split_args(split, os.path.join(root, "par_split_nccl"), PAR_STEPS),
+         "--machine.device", dev.type, "--machine.parallel", "band",
+         "--machine.num-devices", "1"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    assert p.returncode == 0, p.stdout[-4000:] + p.stderr[-4000:]
+    sub_s = time.perf_counter() - t0
+    lines = p.stdout.splitlines()
+    up = [x for x in lines if x.startswith("multi-device")]
+    want = f"mode=band over 1 ranks, backend {backend_for(dev.type)}"
+    assert len(up) == 2 and all(want in x for x in up), p.stdout[-4000:]
+    got = json.loads([x for x in lines if x.startswith("TILE_LOSSES ")][0]
+                     [len("TILE_LOSSES "):])
+    single = {}
+
+    def tile(config):
+        trainer = train.main(config)
+        single[os.path.basename(config.source_path)] = [
+            h[1] for h in trainer.history]
+    train_split.main(split_args(split, os.path.join(root, "par_split_one"),
+                                PAR_STEPS), train_tile=tile)
+    assert sorted(got) == tiles and len(got[tiles[0]]) == PAR_STEPS
+    # a band of the whole frame and a mean over one rank: bit for bit
+    assert got == single, (got, single)
+    for t in tiles:
+        print(f"{tag} one rank through the CLI (`train_split "
+              f"{SPLIT_METHOD} --machine.parallel band --machine.num-devices "
+              f"1`, NCCL): {t}'s {PAR_STEPS} losses equal the one-device "
+              f"train_split's bit for bit (tolerance 0): "
+              f"{[round(x, 6) for x in got[t]]}", flush=True)
+    print(f"{tag} the one-rank sweep took {sub_s:.1f} s in its subprocess"
+          f"  | {card_line}", flush=True)
+
+    # 2. two ranks sharing the card over gloo
+    runs = os.path.join(root, "par_split_ranks")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as store:
+        out = spawn(split_rank, PAR_RANKS, "gloo", dev.type, store,
+                    (split, runs, dev.type))
+    spawn_s = time.perf_counter() - t0
+    assert [r["rank"] for r in out] == list(range(PAR_RANKS))
+    paths = [os.path.join(split, t) for t in tiles]
+    for mode in ("band", "gshard"):
+        for r in out:
+            trained, skipped, per_tile = r[mode]
+            assert (trained, skipped) == (paths, []), (mode, r[mode][:2])
+            assert r[f"{mode} again"] == ([], paths, {}), \
+                (mode, r[f"{mode} again"][:2])
+            for t in tiles:
+                launches = per_tile[t]["launches"]
+                assert all(launches[k] >= PAR_STEPS
+                           for k in PAR_SPLIT_KERNELS), \
+                    (mode, r["rank"], t, launches)
+        # rank 0 alone wrote each tile's run, once
+        for name in ("config.yml", "DONE"):
+            found = sorted(glob.glob(os.path.join(
+                runs, mode, "*", "tile_*", SPLIT_METHOD, "*", name)))
+            assert [f.split(os.sep)[-4] for f in found] == tiles, found
+        for t in tiles:
+            ranks_ms = [statistics.median(r[mode][2][t]["step_ms"])
+                        for r in out]
+            peaks = [r[mode][2][t]["peak_gib"] for r in out]
+            launches = [{k: r[mode][2][t]["launches"][k]
+                         for k in SURFEL_PAIR} for r in out]
+            losses = [round(x, 6) for x in out[0][mode][2][t]["losses"]]
+            print(f"{tag} {mode} {t}: median step "
+                  + " / ".join(f"{x:.2f}" for x in ranks_ms)
+                  + f" ms (rank 0 / 1) over its steps 2-{PAR_STEPS}, peak "
+                  "memory " + " / ".join(f"{x:.2f}" for x in peaks)
+                  + " GiB above each rank's start: two ranks sharing one "
+                  f"card over gloo, not a scaling figure; surfel launches "
+                  f"per rank {launches}; losses {losses}  | {card_line}",
+                  flush=True)
+        print(f"{tag} {mode}: both ranks trained both tiles, rank 0 wrote "
+              f"each tile's run once (one config.yml, one DONE); the "
+              f"second call skipped both tiles on both ranks", flush=True)
+    print(f"{tag} the two ranks in {spawn_s:.1f} s  | {card_line}",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# convergence: the port's first long run, held against gssr_tpu's records
+# ---------------------------------------------------------------------------
+
+# gssr_tpu's "structured-v1" scene (benchmarks/convergence.py): 54 orbit
+# cameras at 400 x 304, 2,400 steps, an eval every 150 steps
+CONV_WIDTH, CONV_HEIGHT = 400, 304
+CONV_CAMS = 54
+CONV_STEPS = 2400
+CONV_EVAL_EVERY = 150
+CONV_LAST_EVALS = (2100, 2250, 2400)
+# gssr_tpu's records (benchmarks/results/convergence_r5.json): eval PSNR at
+# CONV_LAST_EVALS, TSDF f1@0.05 and the saved PLY's vertex count (anchors;
+# gaussians)
+CONV_RECORD = {
+    "octree-2dgs": ((34.8612, 35.3151, 36.3022), 0.8166736535922875, 4676),
+    "pgsr": ((39.0633, 38.8956, 39.0504), 0.7365097790861876, 25841)}
+# the bounds: the mean PSNR over CONV_LAST_EVALS at most this far below
+# the record's mean, f1@0.05 at most this far below the record's
+CONV_PSNR_BELOW = 1.0
+CONV_F1_BELOW = 0.05
+# benchmarks/convergence.py's run_method and METHOD_ARGS (its
+# --scene.instance-cap dropped: the port sizes each render exactly) and
+# eval_mesh's extraction flags and scoring
+CONV_ARGS = {"octree-2dgs": ["--scene.gaussians.capacity", "65536"],
+             "pgsr": ["--scene.gaussians.capacity", "262144",
+                      "--scene.multi-view-from", str(CONV_STEPS // 2)]}
+CONV_MESH_ARGS = ["--skip-images", "--voxel-size", "0.02", "--sdf-trunc",
+                  "0.08", "--depth-trunc", "8.0", "--num-cluster", "0"]
+CONV_SAMPLES = 200_000
+CONV_TAUS = (0.03, 0.05)
+
+
+def make_structured_scene(rng):
+    """Ground plane + 3 spheres + a box, surfaced with small gaussians: a
+    copy of benchmarks/convergence.py::make_structured_scene (the same
+    draws from `rng`, bit for bit).
+
+    Returns (means [N,3], colors [N,3], scales [N])."""
+    means, cols, scales = [], [], []
+
+    # checkered ground plane at y=+0.9 (cameras look down slightly)
+    n_side = 110
+    xs = np.linspace(-2.6, 2.6, n_side)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    gy = np.full_like(gx, 0.9)
+    p = np.stack([gx, gy, gz], -1).reshape(-1, 3)
+    check = ((np.floor(gx * 2) + np.floor(gz * 2)) % 2).reshape(-1)
+    c = np.where(check[:, None] > 0.5,
+                 np.array([[0.85, 0.8, 0.7]]), np.array([[0.25, 0.3, 0.4]]))
+    means.append(p + rng.normal(0, 0.004, p.shape))
+    cols.append(c)
+    scales.append(np.full(len(p), 0.030))
+
+    def sphere(center, radius, n, color_fn):
+        i = np.arange(n)
+        phi = math.pi * (3.0 - math.sqrt(5.0)) * i   # fibonacci sphere
+        y = 1 - 2 * (i + 0.5) / n
+        r = np.sqrt(1 - y * y)
+        d = np.stack([np.cos(phi) * r, y, np.sin(phi) * r], -1)
+        p = center + radius * d
+        means.append(p)
+        cols.append(color_fn(d))
+        scales.append(np.full(n, radius * 3.2 / math.sqrt(n)))
+
+    sphere(np.array([0.0, 0.25, 0.0]), 0.65, 6000,
+           lambda d: 0.5 + 0.45 * np.stack([np.sin(9 * d[:, 0]),
+                                            np.sin(9 * d[:, 1]),
+                                            np.sin(9 * d[:, 2])], -1))
+    sphere(np.array([-1.3, 0.45, 0.8]), 0.45, 3500,
+           lambda d: np.where((np.floor(6 * np.arccos(d[:, 1]) /
+                                        math.pi) % 2)[:, None] > 0.5,
+                              np.array([[0.9, 0.35, 0.2]]),
+                              np.array([[0.95, 0.9, 0.85]])))
+    sphere(np.array([1.2, 0.55, -0.7]), 0.35, 2500,
+           lambda d: 0.5 + 0.5 * np.stack([d[:, 0] * 0, d[:, 1],
+                                           -d[:, 1]], -1) * 0.8)
+
+    # axis-aligned box
+    n_face = 900
+    for axis in range(3):
+        for sgn in (-1.0, 1.0):
+            uv = rng.uniform(-0.35, 0.35, (n_face, 2))
+            p = np.zeros((n_face, 3))
+            other = [a for a in range(3) if a != axis]
+            p[:, other[0]] = uv[:, 0]
+            p[:, other[1]] = uv[:, 1]
+            p[:, axis] = 0.35 * sgn
+            p += np.array([0.9, 0.5, 1.1])
+            means.append(p)
+            stripe = (np.floor((uv[:, 0] + uv[:, 1]) * 7) % 2)[:, None]
+            cols.append(np.where(stripe > 0.5, np.array([[0.2, 0.7, 0.3]]),
+                                 np.array([[0.95, 0.85, 0.3]])))
+            scales.append(np.full(n_face, 0.032))
+
+    means = np.concatenate(means)
+    cols = np.clip(np.concatenate(cols), 0.0, 1.0)
+    scales = np.concatenate(scales)
+    return means, cols, scales
+
+
+def orbit_cameras(n, width, height):
+    """benchmarks/convergence.py::orbit_cameras on the port's Camera: n
+    cameras on three loops around the scene, looking at its centre."""
+    from gssr_tpu_torch.cameras import Camera
+    cams = []
+    for i in range(n):
+        ang = 2 * math.pi * i / n * 3.0          # 3 loops
+        radius = 3.6 + 0.6 * math.sin(i * 0.7)
+        elev = 0.8 + 0.8 * (i % 5) / 4.0          # heights above scene
+        pos = np.array([radius * math.sin(ang), -elev,
+                        -radius * math.cos(ang)])
+        target = np.array([0.0, 0.45, 0.0])
+        fwd = target - pos
+        fwd /= np.linalg.norm(fwd)
+        up = np.array([0.0, -1.0, 0.0])
+        right = np.cross(up, fwd)
+        right /= np.linalg.norm(right)
+        true_up = np.cross(fwd, right)
+        R_w2c = np.stack([right, true_up, fwd])
+        t = -R_w2c @ pos
+        cams.append(Camera(uid=i, colmap_id=i, image_name=f"cam{i:03d}",
+                           R=R_w2c.T, T=t, fovx=math.radians(62),
+                           fovy=math.radians(62 * height / width),
+                           width=width, height=height))
+    return cams
+
+
+def structured_gaussians(means, cols, scales, dev):
+    """The GT gaussians of benchmarks/convergence.py::build_scene_dir:
+    isotropic scales, identity rotations, opacity 0.92, float32."""
+    n = len(means)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return dict(means=f32(means), scales=f32(np.stack([scales] * 3, -1)),
+                rots=f32(np.tile([[1.0, 0, 0, 0]], (n, 1))),
+                opacity=f32(np.full(n, 0.92)), colors=f32(cols))
+
+
+@torch.no_grad()
+def render_structured(g, cam, width, height, dev) -> np.ndarray:
+    """A GT view [H, W, 3] of structured_gaussians on a black background,
+    through the port's rasterize (on the card, the vanilla forward
+    kernel)."""
+    from gssr_tpu_torch.ops.rasterize import rasterize
+    return rasterize(g["means"], g["scales"], g["rots"], g["opacity"],
+                     cam.arrays(dev), width, height,
+                     torch.zeros(3, device=dev),
+                     colors_precomp=g["colors"]).image.cpu().numpy()
+
+
+def build_structured_scene(root, dev, width=CONV_WIDTH, height=CONV_HEIGHT,
+                           n_cams=CONV_CAMS, gt_sub=1, seed=0):
+    """benchmarks/convergence.py::build_scene_dir on the port: the
+    structured scene's GT views rendered by render_structured and written
+    with the port's dataio/colmap.py, beside a sparse init of 1/12 of the
+    GT means jittered by 0.02 (at least 512), which every image observes.
+    gt_sub > 1 thins the scene (its splats fattened by sqrt(gt_sub)).
+    Returns the number of GT gaussians."""
+    from PIL import Image
+
+    from gssr_tpu_torch.dataio.colmap import (
+        ColmapCamera,
+        ColmapImage,
+        ColmapPoint3D,
+        rotmat_to_qvec,
+        write_model,
+    )
+    rng = np.random.default_rng(seed)
+    means, cols, scales = make_structured_scene(rng)
+    if gt_sub > 1:
+        means, cols = means[::gt_sub], cols[::gt_sub]
+        scales = scales[::gt_sub] * math.sqrt(gt_sub)
+    n = len(means)
+    cams = orbit_cameras(n_cams, width, height)
+    g = structured_gaussians(means, cols, scales, dev)
+    os.makedirs(os.path.join(root, "sparse/0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    fx = cams[0].fx
+    ccams = {1: ColmapCamera(1, "PINHOLE", width, height,
+                             np.array([fx, cams[0].fy, width / 2,
+                                       height / 2]))}
+    sel = rng.choice(n, size=max(n // 12, 512), replace=False)
+    pts = means[sel] + rng.normal(0, 0.02, (len(sel), 3))
+    pcols = cols[sel]
+    images = {}
+    for i, c in enumerate(cams):
+        img = render_structured(g, c, width, height, dev)
+        img8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        name = f"{c.image_name}.png"
+        Image.fromarray(img8).save(os.path.join(root, "images", name))
+        pids = np.arange(1, len(pts) + 1, dtype=np.int64)
+        images[i + 1] = ColmapImage(i + 1, rotmat_to_qvec(c.R.T), c.T, 1,
+                                    name, np.zeros((len(pts), 2)), pids)
+    pts3d = {j + 1: ColmapPoint3D(
+        j + 1, pts[j], (pcols[j] * 255).astype(np.uint8), 0.1,
+        np.arange(1, len(cams) + 1, dtype=np.int32),
+        np.full(len(cams), j, dtype=np.int32)) for j in range(len(pts))}
+    write_model(ccams, images, pts3d, os.path.join(root, "sparse/0"))
+    return n
+
+
+def ply_vertex_count(path) -> int:
+    with open(path, "rb") as f:
+        for _ in range(32):
+            line = f.readline().decode("ascii", "ignore")
+            if line.startswith("element vertex"):
+                return int(line.split()[-1])
+    raise ValueError(f"no vertex count in {path}")
+
+
+def conv_run(method, scene_dir, out, truth, dev, card_line,
+             steps=CONV_STEPS, every=CONV_EVAL_EVERY,
+             last=CONV_LAST_EVALS):
+    """`method` trained `steps` steps on the structured scene through its
+    CLI entry point with benchmarks/convergence.py's run_method flags, then
+    meshed and scored as its eval_mesh does: the numbers compared with the
+    record."""
+    import gc
+
+    from gssr_tpu_torch import extract_mesh, train
+    from gssr_tpu_torch.configs.cli import parse_config
+    from gssr_tpu_torch.utils.mesh_eval import (
+        point_cloud_metrics,
+        sample_points_on_mesh,
+    )
+    from gssr_tpu_torch.utils.mesh_extract import read_mesh_ply
+    tag = f"[convergence {method}]"
+    evals = list(range(every, steps + 1, every))
+    args = [method, "--source-path", scene_dir, "--output-path", out,
+            "--eval", "true", "--trainer.iterations", str(steps),
+            "--trainer.test-iterations", ",".join(map(str, evals)),
+            "--trainer.save-iterations", str(steps),
+            "--trainer.log-interval", "50",
+            "--scene.gaussians.densify-until-iter", str(steps // 2),
+            "--scene.gaussians.position-lr-max-steps", str(steps),
+            *CONV_ARGS[method]]
+    pair = PATH_KERNELS[method]
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    trainer = train.main(parse_config(args))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    assert all(launches[k] >= steps for k in pair), launches
+    psnr = {s: trainer.evals[s]["eval_psnr"] for s in evals}
+    assert all(math.isfinite(v) for v in psnr.values()), psnr
+    base = trainer.config.get_base_dir()
+    ply = base / "point_cloud" / f"iteration_{steps}" / "point_cloud.ply"
+    res = dict(wall=wall, psnr=psnr,
+               n_active=int(trainer.scene.state.n_active),
+               ply_vertices=ply_vertex_count(ply),
+               n_test=len(trainer.scene.dataloader.test_cameras),
+               n_train=len(trainer.scene.dataloader.train_cameras),
+               launches={k: launches[k] for k in pair},
+               anchor_log=list(getattr(trainer.scene, "anchor_log", [])))
+    del trainer
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    mesh = extract_mesh.main(["--load-config", str(base / "config.yml"),
+                              *CONV_MESH_ARGS])
+    res["mesh_s"] = time.perf_counter() - t0
+    assert read_counts()[pair[0]] >= res["n_train"], read_counts()
+    verts, faces = read_mesh_ply(mesh["mesh_path"])
+    assert len(verts) > 0 and len(faces) > 0 and np.isfinite(verts).all()
+    pred = sample_points_on_mesh(verts, faces, CONV_SAMPLES, 0)
+    res["mesh"] = point_cloud_metrics(pred, truth, taus=CONV_TAUS)
+    res["verts"] = len(verts)
+    res["psnr_last"] = statistics.mean(psnr[s] for s in last)
+    curve = ", ".join(f"{s}: {psnr[s]:.3f}" for s in evals)
+    print(f"{tag} {steps} steps on {res['n_train']} train cameras in "
+          f"{wall:.1f} s (evals and save included); eval PSNR over "
+          f"{res['n_test']} test cameras at steps {curve}; final n_active "
+          f"{res['n_active']}, saved PLY {res['ply_vertices']} vertices; "
+          f"anchor passes (step, grown) {[e[:2] for e in res['anchor_log']]}"
+          f"; launches {res['launches']}  | {card_line}", flush=True)
+    m = res["mesh"]
+    print(f"{tag} mesh {res['verts']} vertices in {res['mesh_s']:.1f} s "
+          f"(render {mesh['seconds']['render']:.2f}, fusion "
+          f"{mesh['seconds']['fusion']:.2f}, marching tetrahedra "
+          f"{mesh['seconds']['mtet']:.2f} s); chamfer {m['chamfer']:.4f}, "
+          + ", ".join(f"{k} {m[k]:.4f}" for k in sorted(m)
+                      if "@" in k) + f"  | {card_line}", flush=True)
+    return res
+
+
+def phase_convergence(root, dev, card_line):
+    """The structured scene built on the card, octree-2dgs and pgsr
+    trained CONV_STEPS steps each and meshed, each held against gssr_tpu's
+    record: the mean eval PSNR over CONV_LAST_EVALS at most
+    CONV_PSNR_BELOW dB below the record's, f1@0.05 at most CONV_F1_BELOW
+    below. Every number is printed before any bound is asserted."""
+    tag = "[convergence]"
+    scene_dir = os.path.join(root, "structured")
+    reset_counts()
+    t0 = time.perf_counter()
+    n = build_structured_scene(scene_dir, dev)
+    launches = read_counts()
+    assert launches["blend_fwd"] >= CONV_CAMS, launches
+    print(f"{tag} structured scene: {n} GT gaussians, {CONV_CAMS} views at "
+          f"{CONV_WIDTH}x{CONV_HEIGHT} rendered in "
+          f"{time.perf_counter() - t0:.1f} s; launches "
+          f"{{'blend_fwd': {launches['blend_fwd']}}}", flush=True)
+    truth = make_structured_scene(np.random.default_rng(0))[0]
+    out = os.path.join(root, "conv_runs")
+    results = {m: conv_run(m, scene_dir, out, truth, dev, card_line)
+               for m in CONV_RECORD}
+    misses = []
+    for method, r in results.items():
+        ref_psnr, ref_f1, ref_n = CONV_RECORD[method]
+        want = statistics.mean(ref_psnr)
+        f1 = r["mesh"]["f1@0.05"]
+        ok_psnr = r["psnr_last"] >= want - CONV_PSNR_BELOW
+        ok_f1 = f1 >= ref_f1 - CONV_F1_BELOW
+        print(f"{tag} {method}: mean eval PSNR over steps "
+              f"{list(CONV_LAST_EVALS)} {r['psnr_last']:.3f} dB against the "
+              f"record's {want:.3f} (bound: at least "
+              f"{want - CONV_PSNR_BELOW:.3f}): "
+              f"{'within' if ok_psnr else 'MISS'}; f1@0.05 {f1:.4f} against "
+              f"{ref_f1:.4f} (bound: at least {ref_f1 - CONV_F1_BELOW:.4f}):"
+              f" {'within' if ok_f1 else 'MISS'}; saved PLY "
+              f"{r['ply_vertices']} vertices against the record's {ref_n}; "
+              f"{r['wall']:.1f} s of training, {r['mesh_s']:.1f} s of "
+              f"meshing  | {card_line}", flush=True)
+        if not ok_psnr:
+            misses.append(f"{method} PSNR {r['psnr_last']:.3f}")
+        if not ok_f1:
+            misses.append(f"{method} f1@0.05 {f1:.4f}")
+    assert not misses, misses
 
 
 def phase_profile(trainer, path, card_line):
@@ -2570,6 +3097,10 @@ def main(argv=None) -> int:
                     help="a checkout of the parent commit whose vanilla and "
                          "planar forwards and observe count the current "
                          "ones must equal bit for bit and are timed against")
+    ap.add_argument("--convergence", action="store_true",
+                    help="also train octree-2dgs and pgsr 2,400 steps on "
+                         "gssr_tpu's structured scene, mesh them, and hold "
+                         "them against gssr_tpu's convergence records")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2599,6 +3130,7 @@ def main(argv=None) -> int:
         print(f"[split] phase in {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         phase_parallel(root, dev, card_line)
+        phase_parallel_split(root, dev, card_line)
         print(f"[parallel] phase in {time.perf_counter() - t1:.1f} s")
         if args.profile:
             stem, ext = os.path.splitext(args.profile)
@@ -2613,6 +3145,10 @@ def main(argv=None) -> int:
         phase_report_scaffold(*runs["scaffold-gs"], dev, card_line)
         phase_report_octree2d(*runs["octree-2dgs"], dev, card_line)
         phase_report_scaffold_pgsr(*runs["scaffold-pgsr"], dev, card_line)
+        if args.convergence:
+            t1 = time.perf_counter()
+            phase_convergence(root, dev, card_line)
+            print(f"[convergence] phase in {time.perf_counter() - t1:.1f} s")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -217,3 +217,8 @@ class ColmapDataLoader:
         self.draws = 0
         for _ in range(int(draws)):
             self.next_train()
+
+    def get_training_callbacks(self):
+        """The dataloader's before/after-iteration hooks: none by default
+        (gssr_tpu's dataloader keeps the same hook)."""
+        return []

@@ -84,6 +84,8 @@ class Trainer:
             self._load_gaussians()
         if t.load_ckpt_dir is not None:
             self._load_checkpoint()
+        # the scene's hooks, run before and after every train iteration
+        self.callbacks = list(self.scene.get_training_callbacks(self) or [])
         m = self.config.machine
         if self.multi:
             world = comm.world()
@@ -175,7 +177,10 @@ class Trainer:
         if profiler is not None:         # the window outlasted the run
             self._stop_profiler(profiler)
         if self.writer is not None:
-            self.writer.flush()
+            # the run's scalars are written: stop the writer's thread, which
+            # would otherwise outlive the run (a tile sweep makes one a tile)
+            self.writer.close()
+            self.writer = None
         scene.state = scene.full_state(state)
         return scene.state
 

@@ -74,6 +74,15 @@ def barrier():
         dist.barrier()
 
 
+def broadcast_object(obj):
+    """Rank 0's `obj` (any picklable value) on every rank."""
+    if not group_up():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def _reduce_(t: torch.Tensor, op: str) -> torch.Tensor:
     if group_up():
         dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,

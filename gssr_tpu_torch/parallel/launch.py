@@ -3,13 +3,17 @@ gssr_tpu/parallel/launch.py).
 
 One process per device. Two layers use the group, as in the reference:
 
-  1. Tile parallelism (`train_split`): tiles never communicate; the
-     striping only needs each process's rank and the world size, which
-     `maybe_initialize_distributed` writes into `machine.num_hosts` /
-     `machine.host_rank` when a group is up.
+  1. Tile parallelism (`train_split` without `--machine.parallel`): tiles
+     never communicate; the striping only needs each process's rank and
+     the world size, which `maybe_initialize_distributed` writes into
+     `machine.num_hosts` / `machine.host_rank` when a group is up.
   2. Device parallelism (`--machine.parallel dp|band|gshard`): the scene's
      train step runs on every rank, with the collectives of
-     parallel/comm.py between them.
+     parallel/comm.py between them. Every rank of the group trains the
+     same run (under `train_split`, every tile of its host, one after
+     another), so the group's rank is kept out of `num_hosts` /
+     `host_rank`: those stay the `--machine.num-hosts` / `--host-rank`
+     flags, one group per host.
 
 Environment contract, the reference's, read in this order:
   GSSR_COORDINATOR   address of process 0, "host:port"
@@ -24,15 +28,16 @@ backend is NCCL on `cuda` and gloo on `cpu`; the rank's device is
 method (CUDA is unsafe after `fork`) and a FileStore rendezvous under a
 given directory; `python -m gssr_tpu_torch.train ... --machine.parallel
 dp --machine.num-devices N` uses it when no group and no launcher
-environment is there.
+environment is there (`run`).
 """
 from __future__ import annotations
 
 import os
 import queue
+import tempfile
 import time
 import traceback
-from typing import Callable, List, Sequence
+from typing import Any, Callable, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -76,7 +81,8 @@ def maybe_initialize_distributed(machine) -> bool:
     """Initialize torch.distributed when a multi-process launch is asked
     for (the environment contract of the module docstring, or
     machine.dist_init). Idempotent. After it, or when a group is already
-    up, `machine.num_hosts` / `host_rank` are the world size and rank.
+    up, `machine.num_hosts` / `host_rank` are the world size and rank,
+    unless `machine.parallel` is set (layer 2 of the module docstring).
     Returns True when a group is up."""
     if not comm.group_up():
         rendezvous = _env_rendezvous()
@@ -92,11 +98,12 @@ def maybe_initialize_distributed(machine) -> bool:
             init_group_of_one(machine)
         else:
             return False
-    machine.num_hosts = dist.get_world_size()
-    machine.host_rank = dist.get_rank()
-    if machine.host_rank == 0:
-        print(f"torch.distributed up: {machine.num_hosts} processes, "
-              f"backend {dist.get_backend()}")
+        if dist.get_rank() == 0:
+            print(f"torch.distributed up: {dist.get_world_size()} "
+                  f"processes, backend {dist.get_backend()}")
+    if getattr(machine, "parallel", "none") == "none":
+        machine.num_hosts = dist.get_world_size()
+        machine.host_rank = dist.get_rank()
     return True
 
 
@@ -106,7 +113,37 @@ def init_group_of_one(machine) -> None:
     _bind_device(machine.device, 0)
     dist.init_process_group(backend_for(machine.device),
                             store=dist.HashStore(), world_size=1, rank=0)
-    machine.num_hosts, machine.host_rank = 1, 0
+    if getattr(machine, "parallel", "none") == "none":
+        machine.num_hosts, machine.host_rank = 1, 0
+
+
+def run(machine, fn: Callable, args: Sequence = (),
+        rank_fn: Callable = None) -> Any:
+    """fn(*args) inside the group `machine` asks for, and its result:
+    here, as this process's rank, where a launcher started the process or
+    a group is up (that group is left up); here without a group where
+    `machine.parallel` is "none"; here in a group of one, torn down after,
+    where one rank is asked for. Where several are (`machine.num_devices`,
+    0 = every local card, 1 on the CPU), rank_fn(*args) (default fn) runs
+    on each of `spawn`'s processes instead, and their results come back as
+    a list in rank order."""
+    if maybe_initialize_distributed(machine) or machine.parallel == "none":
+        return fn(*args)
+    cuda = torch.device(machine.device).type == "cuda"
+    n = machine.num_devices or (torch.cuda.device_count() if cuda else 1)
+    if cuda and n > torch.cuda.device_count():
+        raise SystemExit(
+            f"error: {n} ranks need {n} cards (NCCL takes one card a rank); "
+            f"this machine has {torch.cuda.device_count()}")
+    if n > 1:
+        with tempfile.TemporaryDirectory() as store:
+            return spawn(rank_fn or fn, n, backend_for(machine.device),
+                         machine.device, store, tuple(args))
+    init_group_of_one(machine)
+    try:
+        return fn(*args)
+    finally:
+        shutdown_distributed()
 
 
 def shutdown_distributed() -> None:

@@ -383,6 +383,13 @@ class VanillaScene:
         return {"eval_l1": float(np.mean(l1s)),
                 "eval_psnr": float(np.mean(psnrs))}
 
+    def get_training_callbacks(self, trainer) -> list:
+        """Host-side hooks the trainer runs before and after every train
+        iteration (engine/callbacks.py::TrainingCallback). The per-step
+        schedules (LR, SH degree) live in the train step, so the default is
+        empty; a subclass returns its own."""
+        return []
+
     # ------------------------------------------------------------------
     def aux_arrays(self) -> List[np.ndarray]:
         """Scene state beyond the gaussians that rides in checkpoints, in

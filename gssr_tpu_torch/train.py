@@ -25,7 +25,6 @@ is one rank instead (parallel/launch.py). Rank 0 writes the run.
 from __future__ import annotations
 
 import random
-import tempfile
 from typing import Optional
 
 import numpy as np
@@ -51,36 +50,15 @@ def main(config: Config) -> Optional[Trainer]:
     if not config.source_path:
         raise SystemExit(
             "error: --source-path is required (a COLMAP scene directory)")
-    m = config.machine
-    m.torch_device()                        # fail early without a card
+    config.machine.torch_device()           # fail early without a card
     config.set_timestamp()                  # before the ranks start: shared
-    owned = False
-    if not launch.maybe_initialize_distributed(m) and m.parallel != "none":
-        cuda = torch.device(m.device).type == "cuda"
-        n = m.num_devices or (torch.cuda.device_count() if cuda else 1)
-        if cuda and n > torch.cuda.device_count():
-            raise SystemExit(
-                f"error: {n} ranks need {n} cards (NCCL takes one card a "
-                f"rank); this machine has {torch.cuda.device_count()}")
-        if n > 1:
-            with tempfile.TemporaryDirectory() as store:
-                launch.spawn(train_rank, n, launch.backend_for(m.device),
-                             m.device, store, (config,))
-            return None
-        launch.init_group_of_one(m)
-        owned = True
-    try:
-        return _train(config)
-    finally:
-        if owned:
-            launch.shutdown_distributed()
+    out = launch.run(config.machine, _train, (config,), train_rank)
+    return None if isinstance(out, list) else out
 
 
 def train_rank(config: Config) -> list:
     """One rank of a run that spawn started: its losses at the log
     points."""
-    config.machine.num_hosts = comm.world()
-    config.machine.host_rank = comm.rank()
     return [h[1] for h in _train(config).history]
 
 

@@ -27,7 +27,7 @@ class RecordingWriter:
         assert (tag, step) not in self.scalars, (tag, step)
         self.scalars[(tag, step)] = float(value)
 
-    def flush(self):
+    def close(self):
         pass
 
 

@@ -1,10 +1,12 @@
-"""What each rank of tests/test_torch_parallel.py runs, in a process that
+"""What each rank of tests/test_torch_parallel.py and
+tests/test_torch_split_parallel.py runs, in a process that
 parallel/launch.py::spawn started (gloo on the CPU). It imports torch and
 gssr_tpu_torch only; every result goes back to the test as numpy, and
 what it needs of gssr_tpu (an initial state, the octree's host
 attributes, densify draws) comes in as numpy."""
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -326,3 +328,23 @@ def fail(message):
     if comm.rank() == 1:
         raise RuntimeError(message)
     return comm.rank()
+
+
+def split_sweep(argv):
+    """`python -m gssr_tpu_torch.train_split` with `argv` on this rank of
+    the group that is up, as under a launcher: the tiles it trained and
+    skipped, and per trained tile its final state's leaves (gssr_tpu's
+    order) and its losses."""
+    from gssr_tpu_torch import train, train_split
+    torch.set_num_threads(1)
+    tiles = {}
+
+    def tile(config):
+        trainer = train.main(config)
+        scene = trainer.scene
+        tiles[os.path.basename(config.source_path)] = dict(
+            leaves=scene.state_to_numpy(scene.state),
+            losses=[h[1] for h in trainer.history])
+    trained, skipped = train_split.main(argv, train_tile=tile)
+    return dict(rank=comm.rank(), trained=trained, skipped=skipped,
+                tiles=tiles)
