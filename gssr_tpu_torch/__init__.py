@@ -22,3 +22,12 @@ _torch.set_float32_matmul_precision("highest")
 # deterministic gradients by default: the SSIM blur's backward must not
 # pick a cuDNN algorithm that accumulates with atomics
 _torch.backends.cudnn.deterministic = True
+
+# On the CPU, torch.exp, torch.log and their kin run oneMKL's vector math
+# (VML), which picks its CPU code path on its first call and caches it
+# without a lock: it stores the raw CPU id, then the table index. When the
+# first call comes from several OpenMP threads at once, a thread that reads
+# the raw id in between runs that call with a low-accuracy kernel (relative
+# error up to 1.5e-4 in its share). One call on this thread, below the
+# intra-op grain, makes the choice before any parallel call can race it.
+_torch.exp(_torch.zeros(16))
