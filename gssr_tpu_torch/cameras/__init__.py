@@ -17,6 +17,7 @@ from gssr_tpu_torch.utils.graphics import (
     projection_matrix,
     world_to_view,
 )
+from gssr_tpu_torch.utils.tracing import span
 
 ZNEAR = 0.01
 ZFAR = 100.0
@@ -78,8 +79,9 @@ class Camera:
 
     def arrays(self, device) -> CameraArrays:
         def f32(v):
-            return torch.as_tensor(np.asarray(v, dtype=np.float32),
-                                   device=device)
+            with span("sync.camera"):
+                return torch.as_tensor(np.asarray(v, dtype=np.float32),
+                                       device=device)
         return CameraArrays(
             w2c=f32(self.w2c), full_proj=f32(self.full_proj),
             campos=f32(self.campos),

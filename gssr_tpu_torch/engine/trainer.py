@@ -4,7 +4,9 @@ Same schedule surface as the reference: test/save/checkpoint iterations,
 gaussian + checkpoint persistence, TensorBoard scalars, a profiler
 window, resume. Metrics reach the host every `log_interval` steps, in one
 transfer, so the device queue stays full in between; each log point is
-also kept in `history` with its host time.
+also kept in `history` with its host time. The loop's own stages run in
+utils/tracing.py spans (trainer.next_train, trainer.log, trainer.densify;
+sync.log and sync.progress around its two reads of the device).
 
 Checkpoints are .npz files with the state leaves in gssr_tpu's order
 (`leaf_i`, see models/convert.py; the scene converts its own state) plus
@@ -31,6 +33,7 @@ import torch
 from gssr_tpu_torch.configs.base import Config
 from gssr_tpu_torch.engine.callbacks import TrainingCallbackLocation
 from gssr_tpu_torch.parallel import comm
+from gssr_tpu_torch.utils.tracing import span
 
 
 def host_metrics(metrics: dict) -> dict:
@@ -40,8 +43,10 @@ def host_metrics(metrics: dict) -> dict:
               if torch.is_tensor(v) and v.device.type != "cpu"]
     out = {k: float(v) for k, v in metrics.items() if k not in on_dev}
     if on_dev:
-        vals = torch.stack([metrics[k].to(torch.float64)
-                            for k in on_dev]).tolist()
+        stacked = torch.stack([metrics[k].to(torch.float64)
+                               for k in on_dev])
+        with span("sync.log"):
+            vals = stacked.tolist()
         out.update(zip(on_dev, vals))
     return {k: out[k] for k in metrics}
 
@@ -128,8 +133,9 @@ class Trainer:
                     step, TrainingCallbackLocation.BEFORE_TRAIN_ITERATION)
             # dp: one camera per rank from the shared sequence, the step
             # takes them all and trains its own
-            cams = [scene.dataloader.next_train()
-                    for _ in range(par.world if par.mode == "dp" else 1)]
+            with span("trainer.next_train"):
+                cams = [scene.dataloader.next_train()
+                        for _ in range(par.world if par.mode == "dp" else 1)]
             mpix_acc += sum(c.width * c.height for c in cams) / 1e6
             state, metrics = scene.train_step(
                 state, cams if par.mode == "dp" else cams[0], step)
@@ -139,7 +145,8 @@ class Trainer:
                 profiler = None
 
             if step % log_interval == 0:
-                m = host_metrics(metrics)
+                with span("trainer.log"):
+                    m = host_metrics(metrics)
                 loss = m["loss"]
                 terms = {k: v for k, v in m.items()
                          if k.endswith("_loss") or k.startswith("n_")}
@@ -150,9 +157,11 @@ class Trainer:
                 self._scalars("train", m, step)
             if step % (log_interval * 50) == 0:
                 dt = max(time.perf_counter() - t0, 1e-9)
+                with span("trainer.log"), span("sync.progress"):
+                    n_active = int(state.n_active)
                 self._print(f"step {step:6d}  loss "
                             f"{-1.0 if ema_loss is None else ema_loss:.4f}  "
-                            f"n_active {int(state.n_active)}  "
+                            f"n_active {n_active}  "
                             f"{(step - self.start_step) / dt:.1f} it/s  "
                             f"{mpix_acc / dt:.2f} Mpix/s")
                 self._scalars("perf", {"mpix_per_s": mpix_acc / dt}, step)
@@ -166,7 +175,8 @@ class Trainer:
             if step in tcfg.save_iterations:
                 self.save_gaussians(scene.full_state(state), step)
 
-            state = scene.train_densify(state, step)
+            with span("trainer.densify"):
+                state = scene.train_densify(state, step)
 
             if step in tcfg.checkpoint_iterations:
                 self.save_checkpoint(scene.full_state(state), step)

@@ -41,6 +41,7 @@ from gssr_tpu_torch.ops.voxel import (
     hash_coords,
     segment_max_sorted,
 )
+from gssr_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,9 +250,11 @@ class OctreeGaussians(ScaffoldGaussians):
         """The level the camera at campos asks for at each position,
         before rounding: log_fork(standard_dist / distance)."""
         dist = torch.linalg.norm(positions - campos, dim=-1)
-        ratio = _f32(self.standard_dist, dist) / torch.clamp(
-            dist, min=1e-9)
-        return torch.log2(ratio) / _f32(math.log2(self.fork), dist)
+        with span("sync.lod"):
+            standard = _f32(self.standard_dist, dist)
+        with span("sync.lod"):
+            log_fork = _f32(math.log2(self.fork), dist)
+        return torch.log2(standard / torch.clamp(dist, min=1e-9)) / log_fork
 
     def coarse_level(self, step, is_training: bool) -> int:
         """The finest level a render may use: the last under progressive
@@ -272,10 +275,12 @@ class OctreeGaussians(ScaffoldGaussians):
         the camera's fractional level by that fraction."""
         cfg = self.config
         level_f = state.level.to(torch.float32)
-        half = _f32(self.voxel_size / 2.0, level_f)
+        with span("sync.lod"):
+            half = _f32(self.voxel_size / 2.0, level_f)
+        with span("sync.lod"):
+            fork = _f32(float(self.fork), level_f)
         anchor_pos = state.anchors["anchor"] + (
-            half / torch.pow(_f32(float(self.fork), level_f),
-                             level_f))[:, None]
+            half / torch.pow(fork, level_f))[:, None]
         pred = self._pred_level(anchor_pos, campos) + state.extra_level
         cur_level = self.coarse_level(step, is_training)
 

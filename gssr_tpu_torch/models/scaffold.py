@@ -33,6 +33,7 @@ from gssr_tpu_torch.ops.voxel import (
 )
 from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.utils.general import expon_lr
+from gssr_tpu_torch.utils.tracing import span
 
 ANCHOR_NAMES = ("anchor", "offset", "feat", "scaling", "rotation", "opacity")
 MLP_NAMES = ("op_w1", "op_b1", "op_w2", "op_b2", "cov_w1", "cov_b1",
@@ -254,7 +255,8 @@ class ScaffoldGaussians:
         on the decoded opacity (Octree-GS's progressive training)."""
         cfg = self.config
         K = cfg.n_offsets
-        idx = torch.nonzero(visible_mask & active).squeeze(1)
+        with span("sync.decode"):
+            idx = torch.nonzero(visible_mask & active).squeeze(1)
         a = {k: x[idx] for k, x in anchors.items()}
         if level_scale_gate is not None:
             level_scale_gate = level_scale_gate[idx]

@@ -23,6 +23,7 @@ from gssr_tpu_torch.utils.general import (
     inverse_sigmoid,
     quat_to_rotmat,
 )
+from gssr_tpu_torch.utils.tracing import span
 
 PARAM_NAMES = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity")
 STAT_NAMES = ("max_radii2d", "grad_accum", "denom")
@@ -207,8 +208,9 @@ class VanillaGaussians:
         """Pixel-grad -> reference NDC-grad factor: the reference CUDA
         backward returns dL/dmean2D scaled by 0.5*W, 0.5*H, and
         densify_grad_threshold is calibrated to that scale."""
-        return torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
-                            device=device)
+        with span("sync.grad_scale"):
+            return torch.tensor([0.5 * width, 0.5 * height],
+                                dtype=torch.float32, device=device)
 
     @staticmethod
     def update_stats(stats, radii, mean2d_grad, grad_scale):

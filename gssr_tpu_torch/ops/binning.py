@@ -18,8 +18,9 @@ read only `tile_ranges`.
 
 Unlike the reference's static capacity, the instance buffer is sized
 exactly for each render: the padded total rounded up to a chunk (one host
-sync per render). So it can never overflow and `overflow` is always
-false.
+sync per render, in the span sync.binning; the segment-mark scatters'
+boolean-mask selections make four more, in sync.binning_scatter). So it
+can never overflow and `overflow` is always false.
 
 All index math here is non-differentiable; callers pass detached inputs.
 """
@@ -28,6 +29,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from gssr_tpu_torch.utils.tracing import span
 
 
 class Binning(NamedTuple):
@@ -59,10 +62,14 @@ def tile_cover_counts(rect, visible, tiles_x: int, tiles_y: int):
 def _scatter_drop(target, pos, vals, reduce=None):
     """target[pos] = vals (or amax-reduce) with out-of-range pos dropped."""
     keep = (pos >= 0) & (pos < target.shape[0])
+    with span("sync.binning_scatter"):
+        pos = pos[keep].long()
+    with span("sync.binning_scatter"):
+        vals = vals[keep]
     if reduce is None:
-        target[pos[keep].long()] = vals[keep]
+        target[pos] = vals
         return target
-    return target.scatter_reduce(0, pos[keep].long(), vals[keep], reduce)
+    return target.scatter_reduce(0, pos, vals, reduce)
 
 
 def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
@@ -96,7 +103,8 @@ def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
     padded_starts = torch.cat([torch.zeros(1, **i32),
                                torch.cumsum(padded_counts, 0,
                                             dtype=torch.int32)])
-    instance_cap = max(int(padded_starts[-1]), chunk)     # the host sync
+    with span("sync.binning"):
+        instance_cap = max(int(padded_starts[-1]), chunk)
     pad_counts = padded_counts - counts
     tidx = torch.arange(num_tiles, **i32)
     tag = 1 << 30

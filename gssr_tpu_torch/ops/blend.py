@@ -41,6 +41,7 @@ import torch
 from gssr_tpu_torch.ops import _kernels
 from gssr_tpu_torch.ops.binning import Binning
 from gssr_tpu_torch.ops.projection import TILE
+from gssr_tpu_torch.utils.tracing import span
 
 ATTR_MX, ATTR_MY = 0, 1
 ATTR_CXX, ATTR_CXY, ATTR_CYY = 2, 3, 4
@@ -373,9 +374,11 @@ class _BlendCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_img, d_T):
-        attrs, ranges, out = ctx.saved_tensors
-        cot = torch.cat([d_img, d_T[..., None]], dim=-1).contiguous()
-        return blend_bwd(attrs, ranges, out, cot, *ctx.tiles), None, None, None
+        with span("render.blend_backward"):
+            attrs, ranges, out = ctx.saved_tensors
+            cot = torch.cat([d_img, d_T[..., None]], dim=-1).contiguous()
+            d_attrs = blend_bwd(attrs, ranges, out, cot, *ctx.tiles)
+        return d_attrs, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -419,7 +422,9 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dg):
         gid_reduce, seg_bounds = ctx.saved_tensors
-        return segment_sum_sorted(dg, gid_reduce, seg_bounds), None, None, None
+        with span("render.gather_backward"):
+            d_rows = segment_sum_sorted(dg, gid_reduce, seg_bounds)
+        return d_rows, None, None, None
 
 
 def pack_instance_attrs(mean2d, conic, color, opacity, binning: Binning):

@@ -57,6 +57,7 @@ from gssr_tpu_torch.ops.blend import (
     _walk,
 )
 from gssr_tpu_torch.ops.projection import TILE
+from gssr_tpu_torch.utils.tracing import span
 
 A_XY = 0          # 0-1  mean2d (low-pass centre)
 A_CA = 2          # 2-4  Tu x Tv
@@ -432,11 +433,17 @@ class _Blend2Core(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rows):
-        attrs, ranges, out = ctx.saved_tensors
-        cot = g_rows.clone()
-        cot[..., list(NO_GRAD_ROWS)] = 0.0
-        return (blend2d_bwd(attrs, ranges, out, cot.contiguous(),
-                            *ctx.tiles), None, None, None)
+        with span("render.blend_backward"):
+            attrs, ranges, out = ctx.saved_tensors
+            cot = g_rows.clone()
+            # the rows' upload and the zero's, each its own host sync
+            with span("sync.blend_rows"):
+                rows = torch.as_tensor(NO_GRAD_ROWS).to(cot.device)
+            with span("sync.blend_rows"):
+                cot[..., rows] = 0.0
+            d_attrs = blend2d_bwd(attrs, ranges, out, cot.contiguous(),
+                                  *ctx.tiles)
+        return d_attrs, None, None, None
 
 
 def pack_instance_attrs_2d(mean2d, Tmat, normal, color, opacity,

@@ -53,6 +53,7 @@ from gssr_tpu_torch.ops.blend import (
 )
 from gssr_tpu_torch.ops.blend2d import _tile_batches
 from gssr_tpu_torch.ops.projection import TILE
+from gssr_tpu_torch.utils.tracing import span
 
 P_RGB = 6         # 6-8
 P_NRM = 9         # 9-11 camera-space normal
@@ -271,9 +272,11 @@ class _BlendPCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rows):
-        attrs, ranges, out = ctx.saved_tensors
-        return (blend_pgsr_bwd(attrs, ranges, out, g_rows.contiguous(),
-                               *ctx.tiles), None, None, None)
+        with span("render.blend_backward"):
+            attrs, ranges, out = ctx.saved_tensors
+            d_attrs = blend_pgsr_bwd(attrs, ranges, out, g_rows.contiguous(),
+                                     *ctx.tiles)
+        return d_attrs, None, None, None
 
 
 def pack_instance_attrs_pgsr(mean2d, conic, color, opacity, normal, distance,

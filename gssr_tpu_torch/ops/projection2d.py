@@ -21,6 +21,7 @@ from gssr_tpu_torch.ops.projection import (
     tile_rect,
 )
 from gssr_tpu_torch.utils.general import quat_to_rotmat
+from gssr_tpu_torch.utils.tracing import span
 
 FILTER_SIZE = 0.707106          # sqrt(2)/2 low-pass radius
 FILTER_INV_SQUARE = 2.0
@@ -40,6 +41,10 @@ class Projected2D(NamedTuple):
 def _conic_aabb(Tu, Tv, Tw, level, visible):
     """Dual-conic AABB of the {rho3d <= level^2} image: centre (cx, cy)
     and half-extents (hx, hy) in pixels; `level` is [N] or a scalar."""
+    if not torch.is_tensor(level):
+        with span("sync.conic_level"):
+            level = torch.as_tensor(level, dtype=torch.float32,
+                                    device=Tw.device)
     lvl2 = torch.broadcast_to(torch.as_tensor(level, dtype=torch.float32,
                                               device=Tw.device) ** 2,
                               Tw.shape[:-1])

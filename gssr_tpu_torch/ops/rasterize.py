@@ -6,7 +6,10 @@ gssr_tpu/ops/rasterize.py):
     -> tile blend (CUDA kernels in a torch.autograd.Function)
 
 Screen-space (mean2d) gradients for the densification statistics come
-from the zero-valued `mean2d_offset` hook.
+from the zero-valued `mean2d_offset` hook. The stages run inside
+utils/tracing.py spans: render.preprocess, render.color (SH),
+render.binning and render.blend here, render.blend_backward and
+render.gather_backward in the backward (ops/blend.py).
 
 Two multi-device branches, one at a time, inside a torch.distributed
 group (the scenes' setup_parallel):
@@ -34,6 +37,7 @@ from gssr_tpu_torch.ops import sh as sh_ops
 from gssr_tpu_torch.ops.blend import CHUNK, blend
 from gssr_tpu_torch.ops.projection import TILE, preprocess
 from gssr_tpu_torch.parallel import comm
+from gssr_tpu_torch.utils.tracing import span
 
 
 def pad_to_tiles(width: int, height: int):
@@ -69,18 +73,20 @@ def rasterize(means3d, scales, rotations, opacity, camera, width: int,
     band_ops.check_modes(band_rank, gauss_shard)
     pw, ph = pad_to_tiles(width, height)
     opacity = opacity.reshape(-1)
-    proj = preprocess(means3d, scales, rotations, camera, pw, ph, opacity,
-                      scaling_modifier=scaling_modifier,
-                      active_mask=active_mask)
-    mean2d = proj.mean2d
-    if mean2d_offset is not None:
-        mean2d = mean2d + mean2d_offset
+    with span("render.preprocess"):
+        proj = preprocess(means3d, scales, rotations, camera, pw, ph,
+                          opacity, scaling_modifier=scaling_modifier,
+                          active_mask=active_mask)
+        mean2d = proj.mean2d
+        if mean2d_offset is not None:
+            mean2d = mean2d + mean2d_offset
 
     if colors_precomp is not None:
         color = colors_precomp
     else:
-        color = sh_ops.sh_to_color(sh_degree, sh_coeffs, means3d,
-                                   camera.campos)
+        with span("render.color"):
+            color = sh_ops.sh_to_color(sh_degree, sh_coeffs, means3d,
+                                       camera.campos)
 
     mean2d_local = mean2d
     conic, depth = proj.conic, proj.depth.detach()
@@ -90,11 +96,13 @@ def rasterize(means3d, scales, rotations, opacity, camera, width: int,
             [mean2d, conic, color, opacity])
         depth, rect, tiles, mask = comm.all_gather_cols(
             [depth, rect, tiles, mask])
-    binning, mean2d, tiles_y, _ = band_ops.bin_band(
-        rect, depth, tiles, mask, mean2d, pw, ph, band_rank, band_count,
-        CHUNK)
-    image, final_T = blend(mean2d, conic, color, opacity, binning, pw,
-                           tiles_y * TILE, bg)
+    with span("render.binning"):
+        binning, mean2d, tiles_y, _ = band_ops.bin_band(
+            rect, depth, tiles, mask, mean2d, pw, ph, band_rank, band_count,
+            CHUNK)
+    with span("render.blend"):
+        image, final_T = blend(mean2d, conic, color, opacity, binning, pw,
+                               tiles_y * TILE, bg)
     num_rendered, overflow = binning.num_rendered, binning.overflow
     if band_rank is not None:
         maps, num_rendered, overflow = band_ops.gather_band(

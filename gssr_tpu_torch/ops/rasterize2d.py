@@ -8,7 +8,8 @@ gssr_tpu/ops/rasterize2d.py):
        the depth_ratio mix
 
 Screen-space (mean2d) gradients for the densification statistics come
-from the zero-valued `mean2d_offset` hook.
+from the zero-valued `mean2d_offset` hook. The stages run inside
+ops/rasterize.py's spans; render.blend also holds the derived maps.
 
 The multi-device branches are ops/rasterize.py's. In band mode the
 surfel's homogeneous splat-to-pixel map is rebased to band-local rows
@@ -30,6 +31,7 @@ from gssr_tpu_torch.ops.projection import TILE
 from gssr_tpu_torch.ops.projection2d import preprocess_2d
 from gssr_tpu_torch.ops.rasterize import pad_to_tiles
 from gssr_tpu_torch.parallel import comm
+from gssr_tpu_torch.utils.tracing import span
 
 
 class Render2DOutput(NamedTuple):
@@ -91,17 +93,19 @@ def rasterize_2d(means3d, scales2, rotations, opacity, camera, width: int,
     band_ops.check_modes(band_rank, gauss_shard)
     pw, ph = pad_to_tiles(width, height)
     opacity = opacity.reshape(-1)
-    proj = preprocess_2d(means3d, scales2, rotations, camera, pw, ph,
-                         opacity, scaling_modifier=scaling_modifier,
-                         active_mask=active_mask)
-    mean2d = proj.mean2d
-    if mean2d_offset is not None:
-        mean2d = mean2d + mean2d_offset
+    with span("render.preprocess"):
+        proj = preprocess_2d(means3d, scales2, rotations, camera, pw, ph,
+                             opacity, scaling_modifier=scaling_modifier,
+                             active_mask=active_mask)
+        mean2d = proj.mean2d
+        if mean2d_offset is not None:
+            mean2d = mean2d + mean2d_offset
     if colors_precomp is not None:
         color = colors_precomp
     else:
-        color = sh_ops.sh_to_color(sh_degree, sh_coeffs, means3d,
-                                   camera.campos)
+        with span("render.color"):
+            color = sh_ops.sh_to_color(sh_degree, sh_coeffs, means3d,
+                                       camera.campos)
 
     mean2d_local = mean2d
     Tmat, normal = proj.Tmat, proj.normal
@@ -110,20 +114,22 @@ def rasterize_2d(means3d, scales2, rotations, opacity, camera, width: int,
         mean2d, Tmat, normal, color, opacity = comm.gather_shard_cols(
             [mean2d, Tmat, normal, color, opacity])
         depth, rect, tiles = comm.all_gather_cols([depth, rect, tiles])
-    binning, mean2d, tiles_y, ty0 = band_ops.bin_band(
-        rect, depth, tiles, None, mean2d, pw, ph, band_rank, band_count,
-        CHUNK)
+    with span("render.binning"):
+        binning, mean2d, tiles_y, ty0 = band_ops.bin_band(
+            rect, depth, tiles, None, mean2d, pw, ph, band_rank, band_count,
+            CHUNK)
     if band_rank is not None:
         Tmat = band_ops.rebase_tmat(Tmat, ty0)
-    maps = blend2d(mean2d, Tmat, normal, color, opacity, binning, pw,
-                   tiles_y * TILE)
+    with span("render.blend"):
+        maps = blend2d(mean2d, Tmat, normal, color, opacity, binning, pw,
+                       tiles_y * TILE)
     num_rendered, overflow = binning.num_rendered, binning.overflow
     if band_rank is not None:
         rows, num_rendered, overflow = band_ops.gather_band(maps.rows,
                                                             binning)
         maps = SurfelMaps(rows)
 
-    return Render2DOutput(
-        **surfel_outputs(maps, camera, width, height, bg, depth_ratio),
-        radii=proj.radius, mean2d=mean2d_local,
-        num_rendered=num_rendered, overflow=overflow)
+    with span("render.blend"):
+        outs = surfel_outputs(maps, camera, width, height, bg, depth_ratio)
+    return Render2DOutput(**outs, radii=proj.radius, mean2d=mean2d_local,
+                          num_rendered=num_rendered, overflow=overflow)

@@ -18,6 +18,10 @@ A render that returns `observe` as a forward output launches the observe
 kernel; a training render passes forward_observe=False and reads the
 counts from the gradient of `observe_offset` instead.
 
+The stages run inside ops/rasterize.py's spans; render.preprocess also
+holds the planar geometry, render.blend the forward observe counts and
+the plane depth.
+
 Band mode is ops/rasterize.py's (there is no gaussian sharding for the
 planar payload, as in gssr_tpu): the observe counts are band-partial, so
 the forward ones are summed over the ranks here and the backward's by the
@@ -37,6 +41,7 @@ from gssr_tpu_torch.ops.projection import TILE, preprocess
 from gssr_tpu_torch.ops.rasterize import pad_to_tiles
 from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.utils.general import quat_to_rotmat
+from gssr_tpu_torch.utils.tracing import span
 
 
 class RenderPGSROutput(NamedTuple):
@@ -129,35 +134,43 @@ def rasterize_pgsr(means3d, scales, rotations, opacity, camera, width: int,
     mode."""
     pw, ph = pad_to_tiles(width, height)
     opacity = opacity.reshape(-1)
-    proj = preprocess(means3d, scales, rotations, camera, pw, ph, opacity,
-                      scaling_modifier=scaling_modifier,
-                      active_mask=active_mask)
-    mean2d = proj.mean2d
-    if mean2d_offset is not None:
-        mean2d = mean2d + mean2d_offset
-    if mean2d_abs_offset is None:
-        mean2d_abs_offset = torch.zeros_like(proj.mean2d)
-    if observe_offset is None:
-        observe_offset = torch.zeros_like(proj.mean2d[:, :1])
+    with span("render.preprocess"):
+        proj = preprocess(means3d, scales, rotations, camera, pw, ph,
+                          opacity, scaling_modifier=scaling_modifier,
+                          active_mask=active_mask)
+        mean2d = proj.mean2d
+        if mean2d_offset is not None:
+            mean2d = mean2d + mean2d_offset
+        if mean2d_abs_offset is None:
+            mean2d_abs_offset = torch.zeros_like(proj.mean2d)
+        if observe_offset is None:
+            observe_offset = torch.zeros_like(proj.mean2d[:, :1])
     if colors_precomp is not None:
         color = colors_precomp
     else:
-        color = sh_ops.sh_to_color(sh_degree, sh_coeffs, means3d,
-                                   camera.campos)
+        with span("render.color"):
+            color = sh_ops.sh_to_color(sh_degree, sh_coeffs, means3d,
+                                       camera.campos)
 
-    normal_c, distance = planar_geometry(means3d, scales, rotations, camera)
-    binning, mean2d, tiles_y, _ = band_ops.bin_band(
-        proj.rect, proj.depth.detach(), proj.tiles_touched, proj.tile_mask,
-        mean2d, pw, ph, band_rank, band_count, CHUNK)
-    maps = blend_pgsr(mean2d, proj.conic, color, opacity, normal_c, distance,
-                      observe_offset, mean2d_abs_offset, binning, pw,
-                      tiles_y * TILE, forward_observe=forward_observe)
-    observe = None
-    if forward_observe:
-        # per-gaussian sums of the slot counts; fillers reduce to nothing
-        observe = segment_sum_sorted(maps.observe_inst[:, None],
-                                     binning.gid_reduce,
-                                     binning.seg_bounds)[:, 0]
+    with span("render.preprocess"):
+        normal_c, distance = planar_geometry(means3d, scales, rotations,
+                                             camera)
+    with span("render.binning"):
+        binning, mean2d, tiles_y, _ = band_ops.bin_band(
+            proj.rect, proj.depth.detach(), proj.tiles_touched,
+            proj.tile_mask, mean2d, pw, ph, band_rank, band_count, CHUNK)
+    with span("render.blend"):
+        maps = blend_pgsr(mean2d, proj.conic, color, opacity, normal_c,
+                          distance, observe_offset, mean2d_abs_offset,
+                          binning, pw, tiles_y * TILE,
+                          forward_observe=forward_observe)
+        observe = None
+        if forward_observe:
+            # per-gaussian sums of the slot counts; fillers reduce to
+            # nothing
+            observe = segment_sum_sorted(maps.observe_inst[:, None],
+                                         binning.gid_reduce,
+                                         binning.seg_bounds)[:, 0]
     num_rendered, overflow = binning.num_rendered, binning.overflow
     if band_rank is not None:
         rows, num_rendered, overflow = band_ops.gather_band(maps.rows,
@@ -165,7 +178,8 @@ def rasterize_pgsr(means3d, scales, rotations, opacity, camera, width: int,
         maps = PlanarMaps(rows)
         if observe is not None:
             observe = comm.all_reduce(observe)
+    with span("render.blend"):
+        outs = planar_outputs(maps, camera, width, height, bg)
     return RenderPGSROutput(
-        **planar_outputs(maps, camera, width, height, bg), observe=observe,
-        radii=proj.radius, mean2d=proj.mean2d,
+        **outs, observe=observe, radii=proj.radius, mean2d=proj.mean2d,
         num_rendered=num_rendered, overflow=overflow)

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gssr_tpu_torch.utils.tracing import span
+
 
 def _gaussian_1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     g = np.exp(-((np.arange(size) - size // 2) ** 2) / (2.0 * sigma ** 2))
@@ -22,7 +24,8 @@ def _gaussian_1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
 def _blur(x, window_size: int):
     """Separable same-padded gaussian blur of [1, C, H, W]."""
     c = x.shape[1]
-    g = torch.as_tensor(_gaussian_1d(window_size), device=x.device)
+    with span("sync.ssim_window"):
+        g = torch.as_tensor(_gaussian_1d(window_size), device=x.device)
     pad = window_size // 2
     x = F.conv2d(x, g.reshape(1, 1, -1, 1).expand(c, 1, -1, 1),
                  padding=(pad, 0), groups=c)

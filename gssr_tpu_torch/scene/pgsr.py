@@ -50,6 +50,7 @@ from gssr_tpu_torch.ops.sampling import (
 )
 from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.scene.vanilla import VanillaScene, VanillaSceneConfig
+from gssr_tpu_torch.utils.tracing import span
 
 GRAY_CACHE_FRAMES = 32
 
@@ -281,20 +282,26 @@ class PGSRScene(VanillaScene):
                  zeros((n, 2)).requires_grad_(True),
                  zeros((n, 1)).requires_grad_(True)]
         par = self.render_par()
-        out = self.render_params(params, cam, sh_degree, state.active, bg,
-                                 *hooks, forward_observe=False, **par)
-        terms = self.loss_terms(out, gt, step, cam)
-        if multi:
-            near, near_gray = self.near_for(cams)
-            near_cam = near.arrays(self.device)
-            near_out = self.render_params(params, near_cam, sh_degree,
-                                          state.active, bg,
-                                          forward_observe=False, **par)
-            terms.update(self.multi_view_terms(out, near_out, cam, near_cam,
-                                               gt, near_gray, step))
-        loss = sum(terms.values())
+        with span("pgsr.render_and_loss"):
+            out = self.render_params(params, cam, sh_degree, state.active,
+                                     bg, *hooks, forward_observe=False,
+                                     **par)
+            with span("pgsr.loss"):
+                terms = self.loss_terms(out, gt, step, cam)
+            if multi:
+                near, near_gray = self.near_for(cams)
+                near_cam = near.arrays(self.device)
+                near_out = self.render_params(params, near_cam, sh_degree,
+                                              state.active, bg,
+                                              forward_observe=False, **par)
+                with span("pgsr.loss"):
+                    terms.update(self.multi_view_terms(
+                        out, near_out, cam, near_cam, gt, near_gray, step))
+            with span("pgsr.loss"):
+                loss = sum(terms.values())
         inputs = [params[k] for k in PARAM_NAMES] + hooks
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        with span("pgsr.backward"):
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if gr is None else gr
                  for x, gr in zip(inputs, grads)]
         grads = (self.merge_grads(grads[:-3])
@@ -302,17 +309,20 @@ class PGSRScene(VanillaScene):
                  + self.merge_counts(grads[-1:]))
         m2d_g, m2d_abs_g, obs_g = grads[-3:]
         with torch.no_grad():
-            new_state = g.adam_step(state, dict(zip(PARAM_NAMES, grads)),
-                                    g.learning_rates(step))
-            extra = self.extra_stats
-            new_state.stats, self.extra_stats = g.update_stats_pgsr(
-                state.stats, extra, out.radii, m2d_g, m2d_abs_g,
-                obs_g[:, 0], g.ndc_grad_scale(self.width, self.height,
-                                              self.device))
-            if self.parallel.mode == "dp":
-                new_state.stats = g.dp_merge_stats(state.stats,
-                                                   new_state.stats)
-                self.extra_stats = g.dp_merge_extra(extra, self.extra_stats)
+            with span("pgsr.adam"):
+                new_state = g.adam_step(state, dict(zip(PARAM_NAMES, grads)),
+                                        g.learning_rates(step))
+            with span("pgsr.stats"):
+                extra = self.extra_stats
+                new_state.stats, self.extra_stats = g.update_stats_pgsr(
+                    state.stats, extra, out.radii, m2d_g, m2d_abs_g,
+                    obs_g[:, 0], g.ndc_grad_scale(self.width, self.height,
+                                                  self.device))
+                if self.parallel.mode == "dp":
+                    new_state.stats = g.dp_merge_stats(state.stats,
+                                                       new_state.stats)
+                    self.extra_stats = g.dp_merge_extra(extra,
+                                                        self.extra_stats)
         metrics = {k: v.detach() for k, v in terms.items()}
         metrics.update(loss=loss.detach(), num_rendered=out.num_rendered,
                        overflow=out.overflow)

@@ -7,10 +7,11 @@ with the MLP and renders them through the vanilla blend kernels
 (ops/rasterize.py with precomputed colours). Autograd runs through render
 and decode into the anchors and the MLP; Adam updates both, and the
 statistics behind anchor growing accumulate inside the start_stat /
-densify_until_iter window. The step's stages run inside profiler ranges
-(scaffold.prefilter, .decode, .render_and_loss, .backward, .adam,
-.stats), for `chip_smoke.py --profile`'s table; while no profiler
-records, a range costs one host call. The hook names (prefilter_anchors,
+densify_until_iter window. The step's stages run inside utils/tracing.py
+spans (scaffold.prefilter, .decode, .render_and_loss, .loss, .backward,
+.adam, .stats), which the benchmark's per-stage metrics read
+(anchor.prefilter_ms, idle.<stage>_ms, device.<stage>_ms); while no
+profiler records, a span costs one check. The hook names (prefilter_anchors,
 decode_and_render, _rasterize_neural, extra_losses, scaling_loss,
 anchor_level_gate) are the reference's, for the octree and anchor-surfel
 scenes to override; step_terms lets the planar anchor scenes add a
@@ -32,7 +33,6 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gssr_tpu_torch.models.convert import (
     scaffold_state_from_numpy,
@@ -50,6 +50,7 @@ from gssr_tpu_torch.ops.projection import preprocess
 from gssr_tpu_torch.ops.rasterize import pad_to_tiles, rasterize
 from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.scene.vanilla import VanillaScene, VanillaSceneConfig
+from gssr_tpu_torch.utils.tracing import span, span_backward
 
 # a filler neural gaussian of a padded gshard gather: a dead vanilla
 # slot's geometry (scaling exp(-10), the identity rotation), masked off
@@ -162,8 +163,10 @@ class ScaffoldScene(VanillaScene):
         the local summand re-added, so that each rank differentiates
         exactly its own shard's part (and the loss stays replicated, as
         the rasterizer's gather contract needs)."""
-        s = torch.where(ng.mask, torch.prod(ng.scaling[:, :dims], dim=-1),
-                        torch.zeros_like(ng.opacity)).sum()
+        # prod's backward counts the zeros of its input on the host
+        prod = span_backward("sync.scaling_loss",
+                             torch.prod(ng.scaling[:, :dims], dim=-1))
+        s = torch.where(ng.mask, prod, torch.zeros_like(ng.opacity)).sum()
         cnt = ng.mask.sum().float()
         if self.parallel.mode == "gshard":
             s = s + (comm.all_reduce(s) - s.detach())
@@ -200,26 +203,27 @@ class ScaffoldScene(VanillaScene):
         cam = camera.arrays(self.device)
         gt = self.gt_device(camera)
         bg = self.get_background()
-        with record_function("scaffold.prefilter"):
+        with span("scaffold.prefilter"):
             visible, gate, lod_dropped = self.visible_anchors(state, cam,
                                                               step)
         anchors = {k: v.detach().requires_grad_(True)
                    for k, v in state.anchors.items()}
         mlp = {k: v.detach().requires_grad_(True)
                for k, v in state.mlp.items()}
-        with record_function("scaffold.decode"):
+        with span("scaffold.decode"):
             ng = g.decode(anchors, mlp, cam.campos, camera.uid, visible,
                           state.active, level_scale_gate=gate)
         m2d_offset = torch.zeros_like(ng.xyz[:, :2], requires_grad=True)
-        with record_function("scaffold.render_and_loss"):
+        with span("scaffold.render_and_loss"):
             out = self.render_neural(ng, cam, bg, mean2d_offset=m2d_offset,
                                      **self.render_par())
-            terms = self.step_terms(state, anchors, mlp, ng, out, gt, bg,
-                                    step, camera, cam, cams)
-            loss = sum(terms.values())
+            with span("scaffold.loss"):
+                terms = self.step_terms(state, anchors, mlp, ng, out, gt, bg,
+                                        step, camera, cam, cams)
+                loss = sum(terms.values())
         inputs = ([anchors[k] for k in ANCHOR_NAMES]
                   + [mlp[k] for k in MLP_NAMES] + [m2d_offset])
-        with record_function("scaffold.backward"):
+        with span("scaffold.backward"):
             grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if gr is None else gr
                  for x, gr in zip(inputs, grads)]
@@ -227,7 +231,7 @@ class ScaffoldScene(VanillaScene):
         grads = (self.merge_grads(grads[:na])
                  + self.merge_grads(grads[na:-1], shared=True)
                  + self.merge_screen_grads(grads[-1:]))
-        with torch.no_grad(), record_function("scaffold.adam"):
+        with torch.no_grad(), span("scaffold.adam"):
             a_lrs, m_lrs = g.learning_rates(step)
             new_anchors, adam_a = adam_update(
                 state.anchors, dict(zip(ANCHOR_NAMES, grads[:na])),
@@ -235,7 +239,7 @@ class ScaffoldScene(VanillaScene):
             new_mlp, adam_m = adam_update(
                 state.mlp, dict(zip(MLP_NAMES, grads[na:-1])),
                 state.adam_mlp, m_lrs)
-        with torch.no_grad(), record_function("scaffold.stats"):
+        with torch.no_grad(), span("scaffold.stats"):
             stats = state.stats
             if cfg.start_stat < step < cfg.densify_until_iter:
                 cap = state.active.shape[0]

@@ -3,7 +3,9 @@
 
 A train step renders through the CUDA blend kernels, differentiates the
 loss with autograd (the blend's backward is the hand-written backward
-kernel), applies Adam and accumulates the densification statistics.
+kernel), applies Adam and accumulates the densification statistics,
+each stage inside a utils/tracing.py span (vanilla.render_and_loss,
+.loss, .backward, .adam, .stats).
 Densification and opacity reset run on their schedule after the step.
 The reference's K-step scan blocks have no counterpart here: they were a
 workaround for XLA dispatch cost that eager PyTorch does not pay.
@@ -52,6 +54,7 @@ from gssr_tpu_torch.ops.rasterize import pad_to_tiles, rasterize
 from gssr_tpu_torch.ops.ssim import l1_loss, psnr, ssim
 from gssr_tpu_torch.parallel import comm
 from gssr_tpu_torch.parallel.comm import Parallel
+from gssr_tpu_torch.utils.tracing import span
 
 GT_CACHE_FRAMES = 64
 
@@ -288,8 +291,9 @@ class VanillaScene:
         key = (camera.uid, np.shape(camera.image))
         v = self._gt_cache.pop(key, None)
         if v is None:
-            v = torch.as_tensor(np.asarray(camera.image, np.float32),
-                                device=self.device)
+            with span("sync.gt_frame"):
+                v = torch.as_tensor(np.asarray(camera.image, np.float32),
+                                    device=self.device)
         self._gt_cache[key] = v
         while len(self._gt_cache) > GT_CACHE_FRAMES:
             self._gt_cache.popitem(last=False)
@@ -315,26 +319,31 @@ class VanillaScene:
                   for k, v in state.params.items()}
         m2d_offset = torch.zeros_like(state.params["xyz"][:, :2],
                                       requires_grad=True)
-        out = self.render_params(params, cam, sh_degree, state.active, bg,
-                                 mean2d_offset=m2d_offset,
-                                 **self.render_par())
-        terms = self.loss_terms(out, gt, step, cam)
-        loss = sum(terms.values())
+        with span("vanilla.render_and_loss"):
+            out = self.render_params(params, cam, sh_degree, state.active,
+                                     bg, mean2d_offset=m2d_offset,
+                                     **self.render_par())
+            with span("vanilla.loss"):
+                terms = self.loss_terms(out, gt, step, cam)
+                loss = sum(terms.values())
         inputs = [params[k] for k in PARAM_NAMES] + [m2d_offset]
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        with span("vanilla.backward"):
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if gr is None else gr
                  for x, gr in zip(inputs, grads)]
         grads = self.merge_grads(grads[:-1]) + \
             self.merge_screen_grads(grads[-1:])
         with torch.no_grad():
-            new_state = g.adam_step(state, dict(zip(PARAM_NAMES, grads)),
-                                    g.learning_rates(step))
-            new_state.stats = g.update_stats(
-                state.stats, out.radii, grads[-1],
-                g.ndc_grad_scale(self.width, self.height, self.device))
-            if self.parallel.mode == "dp":
-                new_state.stats = g.dp_merge_stats(state.stats,
-                                                   new_state.stats)
+            with span("vanilla.adam"):
+                new_state = g.adam_step(state, dict(zip(PARAM_NAMES, grads)),
+                                        g.learning_rates(step))
+            with span("vanilla.stats"):
+                new_state.stats = g.update_stats(
+                    state.stats, out.radii, grads[-1],
+                    g.ndc_grad_scale(self.width, self.height, self.device))
+                if self.parallel.mode == "dp":
+                    new_state.stats = g.dp_merge_stats(state.stats,
+                                                       new_state.stats)
         metrics = {k: v.detach() for k, v in terms.items()}
         metrics.update(loss=loss.detach(), num_rendered=out.num_rendered,
                        overflow=out.overflow)

@@ -1,0 +1,7 @@
+"""device.binning_ms: device ms per traced step of the kernels, copies and sets
+launched in the stage binning (render.binning; portbench/spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "binning")

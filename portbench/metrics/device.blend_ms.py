@@ -1,0 +1,8 @@
+"""device.blend_ms: device ms per traced step of the kernels, copies and sets
+launched in the stage blend (render.blend, render.blend_backward;
+portbench/spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "blend")

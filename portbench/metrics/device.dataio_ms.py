@@ -1,0 +1,7 @@
+"""device.dataio_ms: device ms per traced step of the kernels, copies and sets
+launched in the stage dataio (trainer.next_train; portbench/spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "dataio")

@@ -1,0 +1,8 @@
+"""device.loss_ms: device ms per traced step of the kernels, copies and sets
+launched in the stage loss (vanilla.loss, pgsr.loss, scaffold.loss;
+portbench/spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "loss")

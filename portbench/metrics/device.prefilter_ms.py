@@ -1,0 +1,8 @@
+"""device.prefilter_ms: device ms per traced step of the kernels, copies and
+sets launched in the stage prefilter (scaffold.prefilter;
+portbench/spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, "prefilter")

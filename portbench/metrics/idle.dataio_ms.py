@@ -1,0 +1,7 @@
+"""idle.dataio_ms: idle device ms per traced step whose gap's midpoint lies in
+the stage dataio (trainer.next_train; portbench/spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.idle_ms(ctx, "dataio")

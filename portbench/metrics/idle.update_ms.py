@@ -1,0 +1,7 @@
+"""idle.update_ms: idle device ms per traced step whose gap's midpoint lies in
+the stage update (`*.adam`, `*.stats`; portbench/spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.idle_ms(ctx, "update")
