@@ -36,7 +36,13 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             bit for bit; each pair is timed in turns. With --yardstick, the
             vanilla and planar forwards and the observe count must equal
             DIR's bit for bit, and the observe count is timed in turns with
-            DIR's.
+            DIR's. Then the intersect mask (csrc/projection.cu) against
+            tile_intersect_mask_plain on the same CUDA tensors, element
+            for element: mask_cases' hand-made and random rows (and the
+            same on the CPU) and N = 0, which launches nothing; then, for
+            each MASK_CELLS cell of portbench/ at its real size, the mask
+            inputs of one training step, whose step launched the kernel
+            once; prints there the kernel's device time and its bound.
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
@@ -240,6 +246,10 @@ BWDP_OPS_PER_CONTRIB = 69
 # left out.
 GAUSS_OPS_PER_BLOCK_TEST = 85
 GAUSS_OPS_PER_CULLED = 12
+# FP32 operations of the intersect mask (gssr_tpu_torch/csrc/projection.cu)
+# per tested tile: the box 4, four clamped edge points 5 each, four
+# quadratics 11 each, their minimum 3, the inside test 4 and the cut 1
+MASK_OPS_PER_TILE = 76
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-4)
 BWD_TOL = dict(atol=2e-4, rtol=2e-3)
@@ -293,6 +303,10 @@ OCCUPANCY = {"gssr_blend_fwd_occupancy": 3,
              "gssr_blend_pgsr_fwd_occupancy": 3,
              "gssr_blend_pgsr_obs_occupancy": 4,
              "gssr_blend_pgsr_bwd_occupancy": 3}
+# the cells (portbench/workloads/) at whose inputs phase 2 holds the
+# intersect mask against its plain loop, and the seed of their scenes
+MASK_CELLS = ("3dgs.init", "3dgs.full", "octree-2dgs.init")
+MASK_SEED = 2_147_483_713
 # the kernels --yardstick holds against the parent commit's: wrapper ->
 # (C entry point, output channels per pixel; None for the observe count,
 # one float per instance slot)
@@ -803,6 +817,179 @@ def phase_kernels_pgsr(dev, parent=None):
 
 
 # ---------------------------------------------------------------------------
+# 2b. the tile intersect mask against its plain loop
+# ---------------------------------------------------------------------------
+
+def mask_cases():
+    """Hand-made intersect-mask inputs on the CPU, (mean2d, conic, rect,
+    cutoff, visible), one row a case, a unit conic (cxx = cyy = 1) and
+    cutoff 4.5 unless said: the mean on a tile's edge (x = 16, the first
+    pixel centre of tile 1; x = 15, the last of tile 0), between two
+    tiles (15.5), on a corner (16, 16), and 3 px off a tile (q exactly
+    4.5 = cutoff); a wide flat gaussian over rects of exactly 32 (8 x 4),
+    33 (11 x 3) and 1,200 (40 x 30) tiles, touching each, and a narrow
+    one over 33;
+    zero and NaN conic rows culled (visible False); a zero conic, a NaN
+    conic, a NaN cxy, an infinite cxx, a NaN and a negative cutoff
+    visible; empty and inverted rects; then 20,000 seeded random rows
+    (every 16th culled, rects of 0-12 x 0-6 tiles near the mean, conics
+    of random shape, cutoffs 0-6)."""
+    nan, inf = float("nan"), float("inf")
+    unit = (1.0, 0.0, 1.0)
+    flat = (1e-4, 0.0, 1e-4)
+    rows = [  # mean, conic, rect, cutoff, visible
+        ((16.0, 8.0), unit, (0, 0, 2, 1), 4.5, True),
+        ((15.0, 8.0), unit, (0, 0, 2, 1), 4.5, True),
+        ((15.5, 8.0), unit, (0, 0, 2, 1), 4.5, True),
+        ((16.0, 16.0), unit, (0, 0, 2, 2), 4.5, True),
+        ((18.0, 8.0), unit, (0, 0, 2, 1), 4.5, True),
+        ((64.0, 32.0), flat, (0, 0, 8, 4), 4.5, True),
+        ((88.0, 24.0), flat, (0, 0, 11, 3), 4.5, True),
+        ((320.0, 240.0), (1e-6, 0.0, 1e-6), (0, 0, 40, 30), 4.5, True),
+        ((88.0, 24.0), (0.02, 0.01, 0.5), (0, 0, 11, 3), 4.5, True),
+        ((8.0, 8.0), (0.0, 0.0, 0.0), (0, 0, 2, 2), 4.5, False),
+        ((8.0, 8.0), (nan, nan, nan), (0, 0, 2, 2), 4.5, False),
+        ((8.0, 8.0), (0.0, 0.0, 0.0), (0, 0, 3, 2), 4.5, True),
+        ((8.0, 8.0), (nan, nan, nan), (0, 0, 3, 2), 4.5, True),
+        ((8.0, 8.0), (1.0, nan, 1.0), (0, 0, 3, 2), 4.5, True),
+        ((8.0, 8.0), (inf, 0.5, 1.0), (0, 0, 3, 2), 4.5, True),
+        ((8.0, 8.0), unit, (0, 0, 40, 2), nan, True),
+        ((8.0, 8.0), unit, (0, 0, 3, 2), -1.0, True),
+        ((8.0, 8.0), unit, (1, 1, 1, 3), 4.5, True),
+        ((8.0, 8.0), unit, (3, 2, 1, 1), 4.5, True),
+    ]
+    mean2d = torch.tensor([r[0] for r in rows], dtype=torch.float32)
+    conic = torch.tensor([r[1] for r in rows], dtype=torch.float32)
+    rect = torch.tensor([r[2] for r in rows], dtype=torch.int32)
+    cutoff = torch.tensor([r[3] for r in rows], dtype=torch.float32)
+    visible = torch.tensor([r[4] for r in rows])
+    g = torch.Generator(device="cpu").manual_seed(5)
+    n = 20_000
+    m = torch.rand((n, 2), generator=g) * torch.tensor([400.0, 200.0]) - 20
+    a = torch.exp(torch.rand((n, 2), generator=g) * 10 - 8)
+    c = (torch.rand(n, generator=g) * 2 - 1) * torch.sqrt(a[:, 0] * a[:, 1])
+    lo = torch.floor(m / 16).to(torch.int32) - torch.randint(
+        0, 3, (n, 2), generator=g, dtype=torch.int32)
+    size = torch.randint(0, 13, (n, 2), generator=g, dtype=torch.int32)
+    size[:, 1] //= 2
+    return (torch.cat([mean2d, m]),
+            torch.cat([conic, torch.stack([a[:, 0], c, a[:, 1]], 1)]),
+            torch.cat([rect, torch.cat([lo, lo + size], 1)]),
+            torch.cat([cutoff, 6 * torch.rand(n, generator=g)]),
+            torch.cat([visible, torch.arange(n) % 16 != 0]))
+
+
+def cell_mask_inputs(cell_name, seed, dev):
+    """The intersect mask's calls in one training step of portbench's cell
+    `cell_name` on `dev`, at its real size (its scene written from `seed`,
+    the program built as the benchmark builds it): [(args, (mask,
+    count))] and the kernel launches the step made."""
+    from gssr_tpu_torch.ops import projection as P
+    from portbench import harness
+    from portbench.scene import write_scene as write_cell_scene
+    cell = harness.Cell.named(cell_name)
+    calls, kernel = [], P.tile_intersect_mask
+
+    def spy(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_dir = os.path.join(tmp, "scene")
+        write_cell_scene(scene_dir, seed, cell.points, cell.cameras,
+                         cell.width, cell.height, dev.type)
+        trainer = harness.build_trainer(harness.program_argv(
+            cell, scene_dir, os.path.join(tmp, "out"), seed, dev.type), seed)
+        trainer.start_step = cell.start_step
+        launched = P.LAUNCHES["tile_mask"]
+        P.tile_intersect_mask = spy
+        try:
+            harness.train_to(trainer, cell.start_step + 1)
+        finally:
+            P.tile_intersect_mask = kernel
+        launched = P.LAUNCHES["tile_mask"] - launched
+        del trainer
+    return calls, launched
+
+
+def device_ms(fn, reps=200):
+    """fn's device time per call: `reps` calls queued behind a sleeping
+    kernel, so that the host's launches do not pace them."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def mask_work(args):
+    """The least the mask needs of the card for these inputs: (FP32
+    operations, bytes). Each slot reads its visible flag and writes mask
+    and count; a visible one also its rect; one with a non-empty rect its
+    mean, conic and cutoff, two divisions and MASK_OPS_PER_TILE a tested
+    tile."""
+    _, _, rect, _, visible = args
+    w = (rect[:, 2] - rect[:, 0]).long()
+    area = w * (rect[:, 3] - rect[:, 1]).long()
+    work = visible & (area > 0)
+    tiles = int(torch.where(work, area.clamp(max=32), 0).sum())
+    n, n_vis, n_work = visible.numel(), int(visible.sum()), int(work.sum())
+    return (MASK_OPS_PER_TILE * tiles + 2 * n_work,
+            9 * n + 16 * n_vis + 24 * n_work)
+
+
+def phase_tile_mask(dev):
+    """csrc/projection.cu's intersect mask against
+    tile_intersect_mask_plain on the same CUDA tensors, element for
+    element: mask_cases' rows (and N = 0), then the mask inputs of one
+    training step of each MASK_CELLS cell, whose step must launch the
+    kernel once (one vanilla render, or one anchor prefilter); there the
+    kernel is timed (device_ms) beside its bound."""
+    from gssr_tpu_torch.ops import projection as P
+    cpu = mask_cases()
+    cases = tuple(t.to(dev) for t in cpu)
+    before = P.LAUNCHES["tile_mask"]
+    mask, count = P.tile_intersect_mask(*cases)
+    assert P.LAUNCHES["tile_mask"] == before + 1
+    for want in (P.tile_intersect_mask_plain(*cases),
+                 P.tile_intersect_mask_plain(*cpu)):
+        assert torch.equal(mask.cpu(), want[0].cpu()), "mask differs"
+        assert torch.equal(count.cpu(), want[1].cpu()), "count differs"
+    assert (mask == -1).any() and (count == 1200).any(), \
+        "no case set every bit, or none counted past bit 31"
+    empty = tuple(t[:0] for t in cases)
+    for got, want in zip(P.tile_intersect_mask(*empty),
+                         P.tile_intersect_mask_plain(*empty)):
+        assert got.shape == want.shape == (0,) and got.is_cuda
+    assert P.LAUNCHES["tile_mask"] == before + 1, "N = 0 launched"
+    print(f"[kernels] tile_mask: {mask.numel()} hand-made and random rows "
+          f"and N = 0 equal to the plain loop's (on the card and the CPU)")
+    for cell in MASK_CELLS:
+        calls, launched = cell_mask_inputs(cell, MASK_SEED, dev)
+        assert launched == len(calls) == 1, (cell, launched, len(calls))
+        (args, (mask, count)), = calls
+        want = P.tile_intersect_mask_plain(*args)
+        assert torch.equal(mask, want[0]) and torch.equal(count, want[1]), \
+            f"tile_mask differs from the plain loop at {cell}'s inputs"
+        ops, nbytes = mask_work(args)
+        bound_ms, bound_by = bound(ops, nbytes)
+        ms = device_ms(lambda: P.tile_intersect_mask(*args))
+        visible = args[4]
+        print(f"[kernels] tile_mask at {cell}: {visible.numel()} slots, "
+              f"{int(visible.sum())} visible, {int((count > 0).sum())} "
+              f"touching a tile; equal to the plain loop; {ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {ops} operations, "
+              f"{nbytes} bytes)", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # 3. the main path: train 3dgs through the CLI's entry point
 # ---------------------------------------------------------------------------
 
@@ -891,8 +1078,9 @@ def write_scene(root, dev, seed=0):
 
 def kernel_counts():
     """Every kernel wrapper's launch count dict."""
-    from gssr_tpu_torch.ops import blend, blend2d, blend_pgsr
-    return (blend.LAUNCHES, blend2d.LAUNCHES, blend_pgsr.LAUNCHES)
+    from gssr_tpu_torch.ops import blend, blend2d, blend_pgsr, projection
+    return (blend.LAUNCHES, blend2d.LAUNCHES, blend_pgsr.LAUNCHES,
+            projection.LAUNCHES)
 
 
 def reset_counts():
@@ -1002,6 +1190,13 @@ def phase_train(dev, root, card_line, method):
     for k in PATH_KERNELS[method]:
         assert launches[k] >= renders, \
             f"{k} launched {launches[k]} times in {renders} train renders"
+    # the vanilla preprocess launches the intersect mask at every render
+    # but a surfel one, and at every anchor prefilter; 2dgs has none
+    if method == "2dgs":
+        assert launches["tile_mask"] == 0, launches
+    else:
+        least = STEPS if PATH_KERNELS[method] == SURFEL_PAIR else renders
+        assert launches["tile_mask"] >= least, (launches["tile_mask"], least)
     # no render reads an observe count, and none runs a yardstick kernel
     assert all(launches[k] == 0 for k in V1_KERNELS + ("blend_pgsr_obs",)), \
         launches
@@ -3117,6 +3312,7 @@ def main(argv=None) -> int:
     phase_kernels(dev, parent)
     phase_kernels2d(dev)
     phase_kernels_pgsr(dev, parent)
+    phase_tile_mask(dev)
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_scene(os.path.join(root, "scene"), dev)

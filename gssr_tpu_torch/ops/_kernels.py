@@ -8,7 +8,7 @@ through ctypes. A hash covers the source, the shared header and the flags,
 so an edited source is rebuilt. Importing this module touches neither CUDA
 nor nvcc: CPU-only test runs import every module. `build` also takes
 another checkout's csrc/ (chip_smoke.py --yardstick builds its parent
-commit's kernels beside these).
+commit's kernels beside these), and skips the sources that one lacks.
 """
 from __future__ import annotations
 
@@ -59,6 +59,9 @@ SOURCES = {
         "gssr_blend_pgsr_bwd_v1": _BWD,
         "gssr_blend_pgsr_bwd_occupancy": (_P,),
     },
+    "projection.cu": {
+        "gssr_tile_mask": (_P, _P, _P, _P, _P, _I64, _P, _P),
+    },
 }
 
 _fns = None
@@ -89,6 +92,8 @@ def build(src_dir: Path = _SRC_DIR, build_dir: Path = BUILD_DIR) -> dict:
     t0 = time.perf_counter()
     libs, procs = {}, {}
     for src in SOURCES:
+        if src_dir != _SRC_DIR and not (src_dir / src).is_file():
+            continue
         so = library_path(src, src_dir, build_dir)
         if so.exists():
             libs[src] = {"path": so, "seconds": 0.0,

@@ -4,20 +4,27 @@
 Branch-free masked math over the fixed-capacity gaussian arrays; autograd
 differentiates it. Integer outputs (radius, rect, tile counts, the
 intersect mask) are int32 like the reference's, so binning's bit packing
-carries over unchanged.
+carries over unchanged. The intersect mask on CUDA tensors is the kernel
+of csrc/projection.cu; `tile_intersect_mask_plain`, its plain version, is
+taken for CPU tensors only.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from gssr_tpu_torch.ops import _kernels
 from gssr_tpu_torch.utils.general import build_covariance
 
 TILE = 16          # tile edge in pixels
 NEAR_CULL = 0.2    # view-space z cull threshold
 COV2D_DILATE = 0.3  # low-pass filter added to the cov2D diagonal
 MASK_TILES = 32    # rect tiles covered by the per-gaussian intersect bitmask
+
+# kernel launches since the last reset (the CPU plain path is not counted)
+LAUNCHES = {"tile_mask": 0}
 
 
 class Projected(NamedTuple):
@@ -41,6 +48,36 @@ def _popcount32(x):
 
 
 def tile_intersect_mask(mean2d, conic, rect, cutoff, visible):
+    """tile_intersect_mask_plain's (mask, exact_count), from csrc/
+    projection.cu's kernel for CUDA tensors, bit for bit the same: one
+    launch, no host sync."""
+    if mean2d.device.type != "cuda":
+        return tile_intersect_mask_plain(mean2d, conic, rect, cutoff, visible)
+    n = visible.shape[0]
+    for t, dtype, shape in ((mean2d, torch.float32, (n, 2)),
+                            (conic, torch.float32, (n, 3)),
+                            (rect, torch.int32, (n, 4)),
+                            (cutoff, torch.float32, (n,)),
+                            (visible, torch.bool, (n,))):
+        if t.dtype != dtype or t.shape != shape or t.device != mean2d.device:
+            raise ValueError(f"tile_intersect_mask takes {dtype} {shape} on "
+                             f"{mean2d.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    # kept referenced until the launch has been enqueued
+    ins = tuple(t.contiguous() for t in (mean2d, conic, rect, cutoff,
+                                         visible))
+    mask = torch.empty(n, dtype=torch.int32, device=mean2d.device)
+    count = torch.empty_like(mask)
+    if n:
+        _kernels.launch("gssr_tile_mask", mean2d.device,
+                        *(ctypes.c_void_p(t.data_ptr()) for t in ins),
+                        ctypes.c_int64(n), ctypes.c_void_p(mask.data_ptr()),
+                        ctypes.c_void_p(count.data_ptr()))
+        LAUNCHES["tile_mask"] += 1
+    return mask, count
+
+
+def tile_intersect_mask_plain(mean2d, conic, rect, cutoff, visible):
     """Which of the first MASK_TILES rect tiles the alpha >= 1/255 ellipse
     touches (row-major within the rect). The minimum of the convex conic
     quadratic over a tile's pixel-center box is exact: zero if the mean is

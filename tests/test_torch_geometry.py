@@ -85,16 +85,12 @@ def test_camera_matrices():
     assert tgr.focal_to_fov(500.0, 640) == jgr.focal_to_fov(500.0, 640)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_preprocess_matches(seed):
-    from gssr_tpu.cameras import Camera as JCam
-    from gssr_tpu.ops.projection import preprocess as jpre
-    from gssr_tpu_torch.cameras import Camera as TCam
-    from gssr_tpu_torch.ops.projection import preprocess as tpre
+def _edge_inputs(seed):
+    """200 gaussians, some behind the camera or inactive, some large enough
+    that their rect exceeds the 32-tile intersect mask, and the camera
+    (Camera keywords) of a 192 x 128 image."""
     rng = np.random.default_rng(seed)
     n = 200
-    # some gaussians behind the camera or inactive, some large enough
-    # that their rect exceeds the 32-tile intersect mask
     means = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
     means[:10, 2] = -4.5
     scales = np.exp(rng.uniform(-4, 0.0, (n, 3))).astype(np.float32)
@@ -104,6 +100,16 @@ def test_preprocess_matches(seed):
     kw = dict(uid=0, colmap_id=0, image_name="p", R=np.eye(3),
               T=np.array([0.0, 0.0, 4.0]), fovx=math.radians(70),
               fovy=math.radians(50), width=192, height=128)
+    return means, scales, rots, opac, active, kw
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_preprocess_matches(seed):
+    from gssr_tpu.cameras import Camera as JCam
+    from gssr_tpu.ops.projection import preprocess as jpre
+    from gssr_tpu_torch.cameras import Camera as TCam
+    from gssr_tpu_torch.ops.projection import preprocess as tpre
+    means, scales, rots, opac, active, kw = _edge_inputs(seed)
     j = jpre(jnp.asarray(means), jnp.asarray(scales), jnp.asarray(rots),
              JCam(**kw).arrays(), 192, 128, active_mask=jnp.asarray(active),
              opacity=jnp.asarray(opac))
@@ -120,3 +126,45 @@ def test_preprocess_matches(seed):
                                    **TOL)
     assert (t.tiles_touched.numpy() > 32).any()     # beyond the mask window
     assert (t.tile_mask.numpy() < 0).any()          # bit 31 in use
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tile_mask_cpu_is_the_plain_loop(seed, monkeypatch):
+    """On CPU tensors tile_intersect_mask runs tile_intersect_mask_plain and
+    never reaches a kernel launch, and gives what it gives, on the mask
+    inputs of test_preprocess_matches's edge cases."""
+    from gssr_tpu_torch.cameras import Camera as TCam
+    from gssr_tpu_torch.ops import _kernels
+    from gssr_tpu_torch.ops import projection as P
+
+    def no_launch(name, *args):
+        raise AssertionError(f"a CPU call reached _kernels.launch({name})")
+
+    plain, calls = P.tile_intersect_mask_plain, []
+
+    def spy(*args):
+        calls.append(args)
+        return plain(*args)
+
+    monkeypatch.setattr(_kernels, "launch", no_launch)
+    monkeypatch.setattr(P, "tile_intersect_mask_plain", spy)
+    launches = dict(P.LAUNCHES)
+    means, scales, rots, opac, active, kw = _edge_inputs(seed)
+    t = P.preprocess(torch.from_numpy(means), torch.from_numpy(scales),
+                     torch.from_numpy(rots), TCam(**kw).arrays("cpu"), 192,
+                     128, torch.from_numpy(opac),
+                     active_mask=torch.from_numpy(active))
+    assert len(calls) == 1
+    args = calls[0]
+    mask, count = P.tile_intersect_mask(*args)
+    want_mask, want_count = plain(*args)
+    assert len(calls) == 2 and P.LAUNCHES == launches
+    assert torch.equal(mask, want_mask) and torch.equal(count, want_count)
+    assert torch.equal(mask, t.tile_mask)
+    # the edge cases the inputs hold: rects past 32 tiles, bit 31 set,
+    # behind-camera and inactive slots culled to 0 / 0
+    visible = args[4]
+    assert (count > 32).any() and (mask < 0).any()
+    assert not visible[:10].any() and not visible[10:][~torch.from_numpy(
+        active[10:])].any()
+    assert not mask[~visible].any() and not count[~visible].any()
