@@ -17,11 +17,16 @@ import torch
 import torch.nn.functional as F
 
 from gssr_tpu_torch.ops.blend import CHUNK, segment_sum_sorted
+from gssr_tpu_torch.utils.tracing import span
 
 
 def _clip(x, lo: float, hi: float):
     """jnp.clip's max-then-min, with its even split of a tie's gradient."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    with span("sync.sample_clip"):
+        lo_t = x.new_tensor(lo)
+    with span("sync.sample_clip"):
+        hi_t = x.new_tensor(hi)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 class _GatherTexels(torch.autograd.Function):

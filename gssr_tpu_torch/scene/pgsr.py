@@ -255,8 +255,10 @@ class PGSRScene(VanillaScene):
             picks[self.parallel.rank if self.parallel.mode == "dp" else 0]]
         gray = self._gray_cache.pop(near.uid, None)
         if gray is None:
-            gray = rgb_to_gray(torch.as_tensor(
-                np.asarray(near.image, np.float32), device=self.device))
+            with span("sync.near_gray"):
+                frame = torch.as_tensor(np.asarray(near.image, np.float32),
+                                        device=self.device)
+            gray = rgb_to_gray(frame)
         self._gray_cache[near.uid] = gray
         while len(self._gray_cache) > GRAY_CACHE_FRAMES:
             self._gray_cache.popitem(last=False)
@@ -291,10 +293,12 @@ class PGSRScene(VanillaScene):
             if multi:
                 near, near_gray = self.near_for(cams)
                 near_cam = near.arrays(self.device)
-                near_out = self.render_params(params, near_cam, sh_degree,
-                                              state.active, bg,
-                                              forward_observe=False, **par)
-                with span("pgsr.loss"):
+                with span("pgsr.near_render"):
+                    near_out = self.render_params(params, near_cam,
+                                                  sh_degree, state.active, bg,
+                                                  forward_observe=False,
+                                                  **par)
+                with span("pgsr.loss"), span("pgsr.multiview"):
                     terms.update(self.multi_view_terms(
                         out, near_out, cam, near_cam, gt, near_gray, step))
             with span("pgsr.loss"):

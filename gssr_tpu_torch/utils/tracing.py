@@ -16,7 +16,11 @@ Stage spans (where; stage):
   line; loop), trainer.densify (the scene's train_densify; loop).
 * vanilla.render_and_loss, .loss, .backward, .adam, .stats
   (scene/vanilla.py::train_step, which twodgs.py inherits);
-  pgsr.* (scene/pgsr.py::train_step); scaffold.prefilter, .decode,
+  pgsr.* (scene/pgsr.py::train_step; past multi_view_from its step
+  adds pgsr.near_render, the neighbour camera's render, whose kernels
+  stay in their render.* stages, and pgsr.multiview inside pgsr.loss,
+  the normal, geo and NCC terms, stage loss: neither suffix names a
+  stage); scaffold.prefilter, .decode,
   .render_and_loss, .loss, .backward, .adam, .stats
   (scene/scaffold.py::train_step, which the octree and anchor-surfel
   scenes inherit). `*.render_and_loss` names no stage of its own: its
@@ -54,6 +58,13 @@ step is the number of syncs, their length the host's wait:
   and of their zero (ops/blend2d.py::_Blend2Core.backward), two per
   surfel render;
 * sync.ssim_window: the upload of the SSIM window (ops/ssim.py);
+* sync.sample_clip: each of the two bound uploads of a clamp in the
+  PGSR losses' sampling (ops/sampling.py::_clip): two per bilinear
+  coordinate, four per bilinear sample and two per patch NCC, so 14 a
+  two-camera PGSR step (its geo sample, both NCC samples and the NCC);
+* sync.near_gray: the upload of a neighbour camera's frame for its
+  grayscale, the first time the PGSR scene's cache meets it
+  (scene/pgsr.py::near_for);
 * sync.grad_scale: the upload of the screen-gradient scale
   (models/vanilla.py::ndc_grad_scale), once per step in `*.stats`;
 * sync.decode: the nonzero that sizes the anchor decode
@@ -71,7 +82,9 @@ device.<stage>_ms per stage; dataio.host_ms (trainer.next_train's host
 time); host_syncs_per_step (the sync spans' count), host_sync_wait_ms
 (their host time) and unmarked_syncs_per_step (synchronizing runtime
 calls in no sync span: 0 when this list is complete); anchor.prefilter_ms
-(scaffold.prefilter's host time).
+(scaffold.prefilter's host time); near_render.device_ms,
+multiview.device_ms, multiview.idle_ms and multiview.syncs_per_step
+(pgsr.near_render and pgsr.multiview, read by the spans' names).
 """
 from __future__ import annotations
 

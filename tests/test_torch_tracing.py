@@ -149,3 +149,34 @@ def test_the_profiler_leaves_the_step_bit_for_bit(method, scene_dir,
     for k in m_plain:
         assert torch.equal(torch.as_tensor(m_plain[k]),
                            torch.as_tensor(m_traced[k])), k
+
+
+@pytest.mark.parametrize("two_camera", [False, True],
+                         ids=["single-camera", "two-camera"])
+def test_a_pgsr_step_marks_its_neighbour_and_terms(two_camera, scene_dir,
+                                                   tmp_path):
+    trainer = trainer_for("pgsr", scene_dir, str(tmp_path))
+    if two_camera:
+        trainer.scene.config.multi_view_from = 1
+    train_one(trainer, 2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_one(trainer, 3)
+    events = [e for e in prof.events()
+              if e.name.split(".")[0] in ("pgsr", "sync")]
+    names = [e.name for e in events]
+    # one neighbour render and one set of terms a two-camera step; the
+    # terms' three bilinear samples (two clamps of two uploads each) and
+    # their NCC (one clamp) upload 14 bounds
+    n = 1 if two_camera else 0
+    assert names.count("pgsr.near_render") == n
+    assert names.count("pgsr.multiview") == n
+    assert names.count("sync.sample_clip") == 14 * n
+
+    def inside(name, outer):
+        spans = [e.time_range for e in events if e.name == outer]
+        return all(any(o.start <= e.time_range.start
+                       and e.time_range.end <= o.end for o in spans)
+                   for e in events if e.name == name)
+    assert inside("sync.sample_clip", "pgsr.multiview")
+    assert inside("pgsr.multiview", "pgsr.loss")
+    assert inside("pgsr.near_render", "pgsr.render_and_loss")
