@@ -43,6 +43,16 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             each MASK_CELLS cell of portbench/ at its real size, the mask
             inputs of one training step, whose step launched the kernel
             once; prints there the kernel's device time and its bound.
+            Then binning's instance expansion (csrc/binning.cu) against
+            expand_instances_plain, key and payload bit for bit, on the
+            card and the CPU: expand_cases' hand-made inputs (n = 0, all
+            culled, rects wider than 32 tiles, no mask, a band with the
+            frame's key_tiles, long culled runs), then the inputs of one
+            training step of each EXPAND_CELLS cell, which launched the
+            kernel once a render; prints there the kernel's and the plain
+            chain's device times and the kernel's byte bound. The
+            yardstick design (bin_expand_v1, a thread per gaussian) must
+            give the same integers and is timed in turns with the kernel.
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
@@ -59,7 +69,8 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             fall, a changed n_active, the written PLY (anchor paths: also
             the _mlp.npz and checkpoints.pth), and that every train render
             launched the path's forward and backward kernels (two renders
-            on a multi-view step) and no render launched a *_v1 kernel or
+            on a multi-view step) and the instance expansion, and no
+            render launched a *_v1 kernel or
             the observe count; for the two-camera paths also ring
             neighbours and no camera its own, and geo and NCC losses above
             0 on every multi-view step; for the anchor paths a scaling loss
@@ -290,10 +301,10 @@ ANCHOR_METHODS = ("scaffold-gs", "octree-gs", "scaffold-2dgs", "octree-2dgs",
                   "scaffold-pgsr", "octree-pgsr")
 OCTREE_METHODS = ("octree-gs", "octree-2dgs", "octree-pgsr")
 MULTI_VIEW_METHODS = ("pgsr", "scaffold-pgsr", "octree-pgsr")
-# the first designs of the redesigned kernels, kept as the yardstick of the
-# current ones: no render may launch them
+# the first or the other designs of the kernels, kept as the yardstick of
+# the current ones: no render may launch them
 V1_KERNELS = ("blend_bwd_v1", "blend2d_fwd_v1", "blend2d_bwd_v1",
-              "blend_pgsr_bwd_v1")
+              "blend_pgsr_bwd_v1", "bin_expand_v1")
 # the redesigned kernels' occupancy entry points and the resident blocks per
 # SM each must keep
 OCCUPANCY = {"gssr_blend_fwd_occupancy": 3,
@@ -304,9 +315,11 @@ OCCUPANCY = {"gssr_blend_fwd_occupancy": 3,
              "gssr_blend_pgsr_obs_occupancy": 4,
              "gssr_blend_pgsr_bwd_occupancy": 3}
 # the cells (portbench/workloads/) at whose inputs phase 2 holds the
-# intersect mask against its plain loop, and the seed of their scenes
+# intersect mask and the instance expansion against their plain versions,
+# and the seed of their scenes
 MASK_CELLS = ("3dgs.init", "3dgs.full", "octree-2dgs.init")
-MASK_SEED = 2_147_483_713
+EXPAND_CELLS = MASK_CELLS + ("pgsr.two-camera",)
+CELL_SEED = 2_147_483_713
 # the kernels --yardstick holds against the parent commit's: wrapper ->
 # (C entry point, output channels per pixel; None for the observe count,
 # one float per instance slot)
@@ -879,19 +892,18 @@ def mask_cases():
             torch.cat([visible, torch.arange(n) % 16 != 0]))
 
 
-def cell_mask_inputs(cell_name, seed, dev):
-    """The intersect mask's calls in one training step of portbench's cell
+def cell_calls(cell_name, seed, dev, module, name, counter):
+    """The calls of module.<name> in one training step of portbench's cell
     `cell_name` on `dev`, at its real size (its scene written from `seed`,
-    the program built as the benchmark builds it): [(args, (mask,
-    count))] and the kernel launches the step made."""
-    from gssr_tpu_torch.ops import projection as P
+    the program built as the benchmark builds it): [(args, out)] and the
+    kernel launches module.LAUNCHES[counter] counted in the step."""
     from portbench import harness
     from portbench.scene import write_scene as write_cell_scene
     cell = harness.Cell.named(cell_name)
-    calls, kernel = [], P.tile_intersect_mask
+    calls, fn = [], getattr(module, name)
 
     def spy(*args):
-        out = kernel(*args)
+        out = fn(*args)
         calls.append((args, out))
         return out
 
@@ -902,13 +914,13 @@ def cell_mask_inputs(cell_name, seed, dev):
         trainer = harness.build_trainer(harness.program_argv(
             cell, scene_dir, os.path.join(tmp, "out"), seed, dev.type), seed)
         trainer.start_step = cell.start_step
-        launched = P.LAUNCHES["tile_mask"]
-        P.tile_intersect_mask = spy
+        launched = module.LAUNCHES[counter]
+        setattr(module, name, spy)
         try:
             harness.train_to(trainer, cell.start_step + 1)
         finally:
-            P.tile_intersect_mask = kernel
-        launched = P.LAUNCHES["tile_mask"] - launched
+            setattr(module, name, fn)
+        launched = module.LAUNCHES[counter] - launched
         del trainer
     return calls, launched
 
@@ -972,7 +984,8 @@ def phase_tile_mask(dev):
     print(f"[kernels] tile_mask: {mask.numel()} hand-made and random rows "
           f"and N = 0 equal to the plain loop's (on the card and the CPU)")
     for cell in MASK_CELLS:
-        calls, launched = cell_mask_inputs(cell, MASK_SEED, dev)
+        calls, launched = cell_calls(cell, CELL_SEED, dev, P,
+                                     "tile_intersect_mask", "tile_mask")
         assert launched == len(calls) == 1, (cell, launched, len(calls))
         (args, (mask, count)), = calls
         want = P.tile_intersect_mask_plain(*args)
@@ -987,6 +1000,152 @@ def phase_tile_mask(dev):
               f"touching a tile; equal to the plain loop; {ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {ops} operations, "
               f"{nbytes} bytes)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 2c. binning's instance expansion against its plain chain
+# ---------------------------------------------------------------------------
+
+def expand_cases():
+    """Hand-made binning inputs on the CPU, name -> (rect, depth,
+    tiles_touched, tile_mask, tiles_x, tiles_y, key_tiles), as
+    bin_gaussians takes them: no gaussian (n = 0); all 50 culled (every
+    slot a filler of tile 0); 3,000 seeded splats over 100 x 66 tiles (a
+    third culled, rects of 1-6 x 1-4 tiles, depths of either sign), once
+    with random masks and once with none; 400 rects 20-100 tiles
+    wide, one the whole frame (a run of 6,600 slots, longer than a block's
+    range, and a hit past bit 31 on every wide one); 20,000 gaussians of
+    which one in 97 is visible (long culled runs between two runs); and
+    rank 1's band of two of the random frame, clipped as ops/band.py
+    clips it, with the frame's key_tiles."""
+    from gssr_tpu_torch.ops.band import clip_to_band
+    rng = np.random.default_rng(18)
+
+    def splats(n, tx, ty, width, culled, mask=True):
+        x0 = rng.integers(0, tx, n)
+        y0 = rng.integers(0, ty, n)
+        x1 = np.minimum(x0 + rng.integers(width[0], width[1] + 1, n), tx)
+        y1 = np.minimum(y0 + rng.integers(1, 5, n), ty)
+        rect = np.stack([x0, y0, x1, y1], 1).astype(np.int32)
+        tiles = np.where(culled(n), 0, (x1 - x0) * (y1 - y0))
+        depth = rng.uniform(-2.0, 40.0, n).astype(np.float32)
+        bits = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+        return [torch.from_numpy(rect), torch.from_numpy(depth),
+                torch.from_numpy(tiles.astype(np.int32)),
+                torch.from_numpy(bits) if mask else None]
+
+    third = lambda n: rng.random(n) < 1 / 3          # noqa: E731
+    frame = splats(3000, 100, 66, (1, 6), third)
+    wide = splats(400, 100, 66, (20, 100), lambda n: np.zeros(n, bool))
+    wide[0][0] = torch.tensor([0, 0, 100, 66], dtype=torch.int32)
+    wide[2][0] = 100 * 66
+    sparse = splats(20_000, 100, 66, (1, 6), lambda n: np.arange(n) % 97 > 0)
+    empty = splats(0, 4, 3, (1, 2), third)
+    culled = splats(50, 4, 3, (1, 2), lambda n: np.ones(n, bool))
+    band_rect, band_tiles, band_mask, _ = clip_to_band(
+        frame[0], frame[2], frame[3], 33, 33)
+    return {
+        "n = 0": (*empty, 4, 3, None),
+        "all culled": (*culled, 4, 3, None),
+        "random": (*frame, 100, 66, None),
+        "no mask": (*frame[:3], None, 100, 66, None),
+        "wide rects": (*wide, 100, 66, None),
+        "sparse": (*sparse, 100, 66, None),
+        "band": (band_rect, frame[1], band_tiles, band_mask, 100, 33,
+                 100 * 66),
+    }
+
+
+def expand_inputs(case, dev):
+    """The arguments bin_gaussians hands expand_instances for one
+    expand_cases case on `dev` (the plain chain computes its result, so no
+    kernel is launched)."""
+    from gssr_tpu_torch.ops import binning as B
+    from gssr_tpu_torch.ops.blend import CHUNK
+    rect, depth, tiles, mask, tiles_x, tiles_y, key_tiles = case
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return B.expand_instances_plain(*args)
+
+    B.expand_instances, fn = spy, B.expand_instances
+    try:
+        B.bin_gaussians(rect.to(dev), depth.to(dev), tiles.to(dev), tiles_x,
+                        tiles_y, None if mask is None else mask.to(dev),
+                        chunk=CHUNK, key_tiles=key_tiles)
+    finally:
+        B.expand_instances = fn
+    (args,) = calls
+    return args
+
+
+def expand_work(args):
+    """The least bytes the expansion moves: key and payload out per slot;
+    in, every gaussian's offset, each visible one's rect, depth and mask,
+    and the filler starts."""
+    _, _, mask, offsets, fill_starts, _, cap, _, _ = args
+    visible = int((torch.diff(offsets, prepend=offsets.new_zeros(1)) > 0)
+                  .sum())
+    return (8 * cap + 4 * offsets.numel()
+            + (20 + 4 * (mask is not None)) * visible
+            + 4 * fill_starts.numel() + 4)
+
+
+def phase_bin_expand(dev):
+    """csrc/binning.cu's instance expansion against expand_instances_plain
+    on the same CUDA tensors and on the CPU, bit for bit, and its yardstick
+    design (expand_instances_v1) against it: expand_cases' inputs, then
+    those of one training step of each EXPAND_CELLS cell, whose step must
+    launch the kernel once a render; there both designs (in turns) and the
+    plain chain are timed (device_ms) beside the kernel's byte bound."""
+    from gssr_tpu_torch.ops import binning as B
+
+    def check(args, got, tag):
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        for want in (B.expand_instances_plain(*args),
+                     B.expand_instances_plain(*cpu)):
+            for g, w, what in zip(got, want, ("key", "payload")):
+                assert torch.equal(g.cpu(), w.cpu()), \
+                    f"bin_expand's {what} differs from the plain chain's " \
+                    f"at {tag}"
+        for g, w, what in zip(B.expand_instances_v1(*args), got,
+                              ("key", "payload")):
+            assert torch.equal(g, w), \
+                f"bin_expand_v1's {what} differs from bin_expand's at {tag}"
+
+    for name, case in expand_cases().items():
+        args = expand_inputs(case, dev)
+        before = B.LAUNCHES["bin_expand"]
+        got = B.expand_instances(*args)
+        assert B.LAUNCHES["bin_expand"] == before + 1
+        check(args, got, name)
+        print(f"[kernels] bin_expand {name}: {args[1].numel()} gaussians, "
+              f"{args[6]} slots, equal to the plain chain's (on the card "
+              f"and the CPU) and to bin_expand_v1's", flush=True)
+    for cell in EXPAND_CELLS:
+        calls, launched = cell_calls(cell, CELL_SEED, dev, B,
+                                     "expand_instances", "bin_expand")
+        assert launched == len(calls) >= 1, (cell, launched, len(calls))
+        for i, (args, got) in enumerate(calls):
+            tag = f"{cell} render {i}"
+            check(args, got, tag)
+            nbytes = expand_work(args)
+            bound_ms, bound_by = bound(0, nbytes)
+            times = {B.expand_instances: [], B.expand_instances_v1: []}
+            for fn in (B.expand_instances_v1, B.expand_instances,
+                       B.expand_instances, B.expand_instances_v1):
+                times[fn].append(device_ms(partial(fn, *args)))
+            ms = statistics.mean(times[B.expand_instances])
+            v1_ms = statistics.mean(times[B.expand_instances_v1])
+            plain_ms = device_ms(lambda: B.expand_instances_plain(*args),
+                                 reps=20)
+            print(f"[kernels] bin_expand at {tag}: {args[1].numel()} "
+                  f"gaussians, {args[6]} slots, equal to the plain chain "
+                  f"and to v1; {ms:.4f} ms, v1 {v1_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {nbytes} bytes), plain "
+                  f"chain {plain_ms:.3f} ms", flush=True)
+        del calls
 
 
 # ---------------------------------------------------------------------------
@@ -1078,9 +1237,10 @@ def write_scene(root, dev, seed=0):
 
 def kernel_counts():
     """Every kernel wrapper's launch count dict."""
-    from gssr_tpu_torch.ops import blend, blend2d, blend_pgsr, projection
+    from gssr_tpu_torch.ops import (binning, blend, blend2d, blend_pgsr,
+                                    projection)
     return (blend.LAUNCHES, blend2d.LAUNCHES, blend_pgsr.LAUNCHES,
-            projection.LAUNCHES)
+            projection.LAUNCHES, binning.LAUNCHES)
 
 
 def reset_counts():
@@ -1197,6 +1357,9 @@ def phase_train(dev, root, card_line, method):
     else:
         least = STEPS if PATH_KERNELS[method] == SURFEL_PAIR else renders
         assert launches["tile_mask"] >= least, (launches["tile_mask"], least)
+    # every render bins its instances through the expansion kernel
+    assert launches["bin_expand"] >= renders, (launches["bin_expand"],
+                                               renders)
     # no render reads an observe count, and none runs a yardstick kernel
     assert all(launches[k] == 0 for k in V1_KERNELS + ("blend_pgsr_obs",)), \
         launches
@@ -3313,6 +3476,7 @@ def main(argv=None) -> int:
     phase_kernels2d(dev)
     phase_kernels_pgsr(dev, parent)
     phase_tile_mask(dev)
+    phase_bin_expand(dev)
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_scene(os.path.join(root, "scene"), dev)

@@ -31,8 +31,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _FWD = (_P, _I64, _P, _I32, _I32, _P)
 _BWD = (_P, _I64, _P, _I32, _I32, _P, _P, _P)
+_EXPAND = (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P)
 # source -> its C entry points: (argtypes without the trailing stream). The
-# *_v1 kernels are the first designs, kept as the redesigns' yardstick;
+# *_v1 kernels are the first or the other designs, kept as the yardstick;
 # *_occupancy report a kernel's registers, shared memory and blocks per SM.
 SOURCES = {
     "blend.cu": {
@@ -58,6 +59,10 @@ SOURCES = {
         "gssr_blend_pgsr_bwd": _BWD,
         "gssr_blend_pgsr_bwd_v1": _BWD,
         "gssr_blend_pgsr_bwd_occupancy": (_P,),
+    },
+    "binning.cu": {
+        "gssr_bin_expand": _EXPAND,
+        "gssr_bin_expand_v1": _EXPAND,
     },
     "projection.cu": {
         "gssr_tile_mask": (_P, _P, _P, _P, _P, _I64, _P, _P),

@@ -51,9 +51,7 @@ step is the number of syncs, their length the host's wait:
 * sync.conic_level: the upload of the surfel cutoff level
   (ops/projection2d.py::_conic_aabb), once per surfel render;
 * sync.binning: the padded instance total that sizes a render's
-  instance buffer (ops/binning.py::bin_gaussians);
-* sync.binning_scatter: the four boolean-mask selections of its two
-  segment-mark scatters (ops/binning.py::_scatter_drop);
+  instance buffer (ops/binning.py::bin_gaussians), binning's only sync;
 * sync.blend_rows: the surfel backward's upload of the rows it zeroes
   and of their zero (ops/blend2d.py::_Blend2Core.backward), two per
   surfel render;

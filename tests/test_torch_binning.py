@@ -71,3 +71,89 @@ def test_bin_gaussians_matches(n, seed):
     if n:
         hits = t.hit.numpy()
         assert 0 < hits.sum() < live        # real hits and filler / culled
+
+
+# chip_smoke.expand_cases' inputs, which the card holds the expansion
+# kernel to as well
+EXPAND_CASES = ["n = 0", "all culled", "random", "no mask", "wide rects",
+                "sparse", "band"]
+
+
+def _expand_reference(rect, depth, tiles, mask, tiles_x, tiles_y, key_tiles,
+                      chunk=128):
+    """duplicateWithKeys in numpy, one run at a time: each visible
+    gaussian writes its rect's tiles in row-major order, then each tile its
+    padding, then tile 0 fills what is left of the minimum buffer.
+    Returns expand_instances' arguments and the (key, payload) it must
+    give."""
+    rect, tiles = rect.numpy().astype(np.int64), tiles.numpy()
+    n, num_tiles = len(tiles), tiles_x * tiles_y
+    depth_bits = 32 - max(1, int((key_tiles or num_tiles) + 1).bit_length())
+    ones = (1 << depth_bits) - 1
+    dq = (depth.numpy().view(np.int32).astype(np.int64)
+          >> (31 - depth_bits)) & ones
+    bits = None if mask is None else mask.numpy().view(np.uint32)
+    real = []
+    for g in range(n):
+        x0, y0, x1, _ = rect[g]
+        for local in range(int(tiles[g])):
+            tile = (y0 + local // (x1 - x0)) * tiles_x + x0 + local % (x1 - x0)
+            hit = 1 if bits is None or local >= 32 else (bits[g] >> local) & 1
+            real.append((tile, (tile << depth_bits) | dq[g],
+                         g | int(hit) << 30 | 1 << 29))
+    counts = np.bincount([r[0] for r in real], minlength=num_tiles)
+    pads = -counts % chunk
+    cap = max(int(counts.sum() + pads.sum()), chunk)
+    key = np.full(cap, ones, np.int64)        # tile 0 past every run
+    payload = np.zeros(cap, np.int64)
+    key[:len(real)] = [r[1] for r in real]
+    payload[:len(real)] = [r[2] for r in real]
+    s = len(real)
+    for t in range(num_tiles):
+        key[s:s + pads[t]] = (t << depth_bits) | ones
+        s += pads[t]
+    key = (key ^ (1 << 31)).astype(np.uint32).view(np.int32)
+    nr = int(tiles.sum())
+    args = (torch.from_numpy(rect.astype(np.int32)), depth, mask,
+            torch.from_numpy(np.cumsum(tiles).astype(np.int32)),
+            torch.from_numpy((nr + np.concatenate([[0], np.cumsum(pads)]))
+                             .astype(np.int32)),
+            torch.tensor(nr, dtype=torch.int32), cap, tiles_x, depth_bits)
+    return args, key, payload.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_expand_instances_plain_matches_duplicate_with_keys(case):
+    """expand_instances_plain, the CPU path and the card's reference,
+    against an independent per-gaussian expansion; and bin_gaussians hands
+    it the same arguments the expansion takes from first principles."""
+    from chip_smoke import expand_cases, expand_inputs
+    from gssr_tpu_torch.ops.binning import expand_instances_plain
+    inputs = expand_cases()[case]
+    args, key, payload = _expand_reference(*inputs)
+    got = expand_inputs(inputs, torch.device("cpu"))
+    for a, b in zip(got, args):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b)
+        else:
+            assert a == b
+    k, p = expand_instances_plain(*args)
+    np.testing.assert_array_equal(k.numpy(), key)
+    np.testing.assert_array_equal(p.numpy(), payload)
+
+
+def test_cpu_binning_launches_no_kernel():
+    """CPU tensors take the plain chain, through either design's wrapper:
+    the launch counters stay where they were."""
+    from chip_smoke import expand_cases, expand_inputs
+    from gssr_tpu_torch.ops import binning as B
+    case = expand_cases()["random"]
+    rect, depth, tiles, mask, tiles_x, tiles_y, _ = case
+    before = dict(B.LAUNCHES)
+    out = B.bin_gaussians(rect, depth, tiles, tiles_x, tiles_y, mask)
+    args = expand_inputs(case, torch.device("cpu"))
+    for a, b in zip(B.expand_instances_v1(*args),
+                    B.expand_instances_plain(*args)):
+        assert torch.equal(a, b)
+    assert B.LAUNCHES == before
+    assert int(out.num_rendered) == int(tiles.sum()) > 0

@@ -13,8 +13,8 @@ from pathlib import Path
 
 import pytest
 
-from gssr_tpu_torch.ops import (_kernels, blend, blend2d, blend_pgsr,
-                                projection)
+from gssr_tpu_torch.ops import (_kernels, binning, blend, blend2d,
+                                blend_pgsr, projection)
 
 CSRC = Path(_kernels.__file__).resolve().parent.parent / "csrc"
 KIND = {ctypes.c_void_p: "pointer", ctypes.c_int64: "int64",
@@ -65,7 +65,7 @@ def test_entry_points_match_their_bindings(source):
 
 
 @pytest.mark.parametrize("module",
-                         [blend, blend2d, blend_pgsr, projection],
+                         [binning, blend, blend2d, blend_pgsr, projection],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_launch_counters_name_entry_points(module):
     """Every kernel a wrapper counts has its entry point, gssr_<key>, in the

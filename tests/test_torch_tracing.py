@@ -109,10 +109,10 @@ def test_a_step_emits_its_stage_spans(method, scene_dir, tmp_path):
     # every span the step emits is one the module documents
     for n in set(names):
         assert "." + n.split(".", 1)[1] in tracing.__doc__, n
-    # one render a step: one sync.binning, its four scatter selections,
-    # one camera's nine uploads
+    # one render a step: one sync.binning (binning's only sync), one
+    # camera's nine uploads
     assert names.count("sync.binning") == names.count("render.binning") == 1
-    assert names.count("sync.binning_scatter") == 4
+    assert names.count("sync.binning_scatter") == 0
     assert names.count("sync.camera") == 9
 
     def inside(name, outer):
