@@ -30,16 +30,11 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             boundary, a warp done beside walking ones, a tile that never
             reaches 0.5). Each backward runs twice and must agree bit for
             bit, and the planar backward's observe row must equal the
-            observe kernel's counts. The first designs of the four
-            redesigned backward and surfel kernels (the *_v1 kernels, their
-            yardstick) pass the same checks and must equal the current ones
-            bit for bit; each pair is timed in turns. With --yardstick, the
-            vanilla and planar forwards and the observe count must equal
-            DIR's bit for bit, and the observe count is timed in turns with
-            DIR's. Then the intersect mask (csrc/projection.cu) against
-            tile_intersect_mask_plain on the same CUDA tensors, element
-            for element: mask_cases' hand-made and random rows (and the
-            same on the CPU) and N = 0, which launches nothing; then, for
+            observe kernel's counts. Then the intersect mask
+            (csrc/projection.cu) against tile_intersect_mask_plain on the
+            same CUDA tensors, element for element: mask_cases' hand-made
+            and random rows (and the same on the CPU) and N = 0, which
+            launches nothing; then, for
             each MASK_CELLS cell of portbench/ at its real size, the mask
             inputs of one training step, whose step launched the kernel
             once; prints there the kernel's device time and its bound.
@@ -50,9 +45,9 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             frame's key_tiles, long culled runs), then the inputs of one
             training step of each EXPAND_CELLS cell, which launched the
             kernel once a render; prints there the kernel's and the plain
-            chain's device times and the kernel's byte bound. The
-            yardstick design (bin_expand_v1, a thread per gaussian) must
-            give the same integers and is timed in turns with the kernel.
+            chain's device times and the kernel's byte bound. With
+            --yardstick, every kernel of this phase is held against DIR's
+            build (below).
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
@@ -70,8 +65,8 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             the _mlp.npz and checkpoints.pth), and that every train render
             launched the path's forward and backward kernels (two renders
             on a multi-view step) and the instance expansion, and no
-            render launched a *_v1 kernel or
-            the observe count; for the two-camera paths also ring
+            render launched the observe count; for the two-camera paths
+            also ring
             neighbours and no camera its own, and geo and NCC losses above
             0 on every multi-view step; for the anchor paths a scaling loss
             above 0 at every step, and for the octree ones an LOD mask that
@@ -144,11 +139,8 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             pair under that of the 2dgs loss with both regularisers live
             plus a random one on median_normal, the planar kernels under
             that of the pgsr multi-view loss, each channel group scaled to
-            unit size; with times and bounds, the four redesigned backward
-            and surfel kernels timed in turns with their v1 kernels (v1,
-            new, new, v1; "v1_ms" in their rows) after asserting that each
-            equals its v1 bit for bit, and each plain version timed on its
-            one comparison call. At the 3dgs, 2dgs and pgsr inputs it also
+            unit size; with times and bounds, each plain version timed on
+            its one comparison call. At the 3dgs, 2dgs and pgsr inputs it also
             prints, from the plain versions of the forwards' culls, the
             share of evaluated pairs the per-pair test proves zero and the
             share of (warp, instance) steps that a warp's 8 x 4 block skips
@@ -161,12 +153,11 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             gaussians decoded for camera 0), printed apart: the vanilla
             pair at scaffold-gs's, the surfel pair at octree-2dgs's, the
             planar kernels at scaffold-pgsr's; the {"kernels": [...]} line
-            keeps one row per kernel. With
-            --yardstick, the vanilla and planar forwards and the observe
-            count must equal DIR's bit for bit, are timed in turns with
-            them (DIR, new, new, DIR) and their rows gain "parent_ms".
-            Prints the {"kernels": [...]} line, the card, and last the
-            {"ok": true, "device": {...}} line.
+            keeps one row per kernel. With --yardstick, every kernel is
+            held against DIR's build here too, and its row gains
+            "parent_ms"; then every entry point both trees define must
+            have been held. Prints the {"kernels": [...]} line, the card,
+            and last the {"ok": true, "device": {...}} line.
 
 --convergence adds, after the report, the port's long run held against
 gssr_tpu's records (benchmarks/results/convergence_r5.json): gssr_tpu's
@@ -192,9 +183,13 @@ for the anchor paths it also prints the step's stages
 (scene/scaffold.py's profiler ranges).
 
 --yardstick DIR names a checkout of the parent commit (for example `git
-archive HEAD` unpacked under build/): its vanilla and planar forward
-kernels and its observe count are the yardstick the redesigned ones are
-held and timed against.
+archive HEAD` unpacked under build/), whose build of the kernels is the
+yardstick of this tree's. Each kernel call of phases 2 and 4 is made
+again through the same wrapper with DIR's kernels swapped in
+(kernel_table), so that they see the same buffers, zero-fills and
+strides: the result must equal this tree's bit for bit, and both are timed
+in turns (DIR, new, new, DIR; "parent_ms"). The run fails unless every
+entry point that both trees define, the occupancy ones apart, was held so.
 """
 from __future__ import annotations
 
@@ -301,10 +296,6 @@ ANCHOR_METHODS = ("scaffold-gs", "octree-gs", "scaffold-2dgs", "octree-2dgs",
                   "scaffold-pgsr", "octree-pgsr")
 OCTREE_METHODS = ("octree-gs", "octree-2dgs", "octree-pgsr")
 MULTI_VIEW_METHODS = ("pgsr", "scaffold-pgsr", "octree-pgsr")
-# the first or the other designs of the kernels, kept as the yardstick of
-# the current ones: no render may launch them
-V1_KERNELS = ("blend_bwd_v1", "blend2d_fwd_v1", "blend2d_bwd_v1",
-              "blend_pgsr_bwd_v1", "bin_expand_v1")
 # the redesigned kernels' occupancy entry points and the resident blocks per
 # SM each must keep
 OCCUPANCY = {"gssr_blend_fwd_occupancy": 3,
@@ -320,12 +311,6 @@ OCCUPANCY = {"gssr_blend_fwd_occupancy": 3,
 MASK_CELLS = ("3dgs.init", "3dgs.full", "octree-2dgs.init")
 EXPAND_CELLS = MASK_CELLS + ("pgsr.two-camera",)
 CELL_SEED = 2_147_483_713
-# the kernels --yardstick holds against the parent commit's: wrapper ->
-# (C entry point, output channels per pixel; None for the observe count,
-# one float per instance slot)
-YARDSTICK = {"blend_fwd": ("gssr_blend_fwd", 4),
-             "blend_pgsr_fwd": ("gssr_blend_pgsr_fwd", 8),
-             "blend_pgsr_obs": ("gssr_blend_pgsr_obs", None)}
 # each path's options beyond the common ones: SH degree 3 from step 15
 # (the anchor models have no SH); the anchor paths gather their
 # statistics from step 3, so that adjust_anchor after steps 20 and 30 has
@@ -391,14 +376,13 @@ def timed(fn):
     return out, a.elapsed_time(b)
 
 
-def turns_ms(v1, new, reps: int = 20):
-    """A yardstick kernel (v1, or the parent commit's) and its redesign
-    timed in turns v1, new, new, v1: (v1 ms, new ms), each the median of
-    its two turns' samples."""
-    times = {v1: [], new: []}
-    for fn in (v1, new, new, v1):
+def turns_ms(a, b, reps: int = 20):
+    """Two versions of a call timed in turns a, b, b, a: (a ms, b ms), each
+    the median of its two turns' samples."""
+    times = {a: [], b: []}
+    for fn in (a, b, b, a):
         times[fn] += event_ms(fn, reps)
-    return statistics.median(times[v1]), statistics.median(times[new])
+    return statistics.median(times[a]), statistics.median(times[b])
 
 
 def max_err(a, b) -> float:
@@ -494,20 +478,17 @@ def per_gaussian(slot_values, b):
 def phase_build(dev, yardstick=None):
     """Build and load the kernels; with `yardstick` (a checkout of the
     parent commit) also build its kernels into build/yardstick/. Returns
-    {wrapper name: the parent's forward} for YARDSTICK's forwards, or
-    None."""
+    the parent's Yardstick, or None."""
     from gssr_tpu_torch.ops import _kernels
     builds = [("", _kernels.build())]
     _kernels.load()
-    parent = None
+    yard = None
     if yardstick:
         info = _kernels.build(
             Path(yardstick) / "gssr_tpu_torch" / "csrc",
             _kernels.BUILD_DIR.parent / "yardstick")
         builds.append(("yardstick ", info))
-        parent = {name: partial(parent_fwd, bind_parent(info["libs"], entry),
-                                rows)
-                  for name, (entry, rows) in YARDSTICK.items()}
+        yard = Yardstick(_kernels.bind(info["libs"]))
     for tag, info in builds:
         print(f"[build] {tag}{len(info['libs'])} libraries in "
               f"{info['seconds']:.2f} s (one nvcc per source, in parallel)")
@@ -517,7 +498,7 @@ def phase_build(dev, yardstick=None):
         print(f"[build] {name}: {occ}")
         assert occ["blocks_per_sm"] >= least, (name, occ)
         assert occ["local_bytes"] == 0, (name, occ)
-    return parent
+    return yard
 
 
 def log_build(tag, info):
@@ -530,59 +511,100 @@ def log_build(tag, info):
                 print(f"[build] {tag}{line.strip()}")
 
 
-def bind_parent(libs, entry):
-    """The parent commit's forward `entry` from its built libraries `libs`
-    (build()["libs"]), bound through ctypes: (C function, error string)."""
-    import ctypes
+# ---------------------------------------------------------------------------
+# --yardstick: the parent commit's kernels through this tree's wrappers
+# ---------------------------------------------------------------------------
 
+def kernel_keys(names) -> set:
+    """The launch counters of these entry points, the occupancy ones
+    apart: entry point gssr_<key> counts its launches in LAUNCHES[key]."""
+    return {name[len("gssr_"):] for name in names
+            if not name.endswith("_occupancy")}
+
+
+@contextlib.contextmanager
+def kernel_table(fns):
+    """The kernel wrappers launch the entry points of `fns` (a table
+    _kernels.bind returns) in place of _kernels' own; on the way out that
+    table and every LAUNCHES count are as they were. Yields the set of
+    LAUNCHES keys that moved meanwhile, filled on the way out."""
     from gssr_tpu_torch.ops import _kernels
-    src = next(s for s, entries in _kernels.SOURCES.items()
-               if entry in entries)
-    lib = ctypes.CDLL(str(libs[src]["path"]))
-    lib.gssr_error_string.argtypes = [ctypes.c_int]
-    lib.gssr_error_string.restype = ctypes.c_char_p
-    fn = getattr(lib, entry)
-    fn.argtypes = [*_kernels.SOURCES[src][entry], ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn, lib.gssr_error_string
+    own = _kernels.load()
+    counts = [dict(c) for c in kernel_counts()]
+    moved = set()
+    _kernels._fns = fns
+    try:
+        yield moved
+    finally:
+        _kernels._fns = own
+        for c, was in zip(kernel_counts(), counts):
+            moved.update(k for k in c if c[k] != was[k])
+            c.update(was)
 
 
-def parent_fwd(bound, rows, attrs, ranges, tiles_x, tiles_y):
-    """The parent commit's forward (bind_parent's `bound`) on these inputs
-    -> [H, W, rows], or with rows None its observe count -> [I] (zero-
-    filled first, as its entry point asks); called here, so no LAUNCHES
-    count moves."""
-    import ctypes
+class Yardstick:
+    """The parent commit's build of the kernels (--yardstick DIR), bound as
+    _kernels binds this tree's and launched through this tree's own
+    wrappers. `keys` are the counters of the entry points both trees
+    define (an entry point the parent lacks runs this tree's kernel on
+    both sides and is not held); `held` those a check has held."""
 
-    from gssr_tpu_torch.ops.blend import _ptr
-    fn, error_string = bound
-    out = (torch.zeros(attrs.shape[1], dtype=torch.float32,
-                       device=attrs.device) if rows is None else
-           torch.empty((tiles_y * 16, tiles_x * 16, rows),
-                       dtype=torch.float32, device=attrs.device))
-    stream = torch.cuda.current_stream(attrs.device).cuda_stream
-    err = fn(_ptr(attrs), ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
-             ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(out),
-             ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"the parent's kernel: "
-                           f"{error_string(err).decode()}")
-    return out
+    def __init__(self, fns):
+        from gssr_tpu_torch.ops import _kernels
+        self.own = _kernels.load()
+        self.fns = {**self.own, **fns}
+        self.keys, self.held = kernel_keys(fns), set()
+
+    def equal(self, fn, out, tag):
+        """fn(), one wrapper call, must give `out`, its result on this
+        tree's kernels, on the parent's too, bit for bit (a tensor or a
+        tuple of them)."""
+        with kernel_table(self.fns) as moved:
+            base = fn()
+        assert len(moved) == 1, (tag, moved)
+        if not moved <= self.keys:
+            return
+        pairs = zip(out, base) if isinstance(out, tuple) else [(out, base)]
+        assert all(torch.equal(a, b) for a, b in pairs), \
+            f"{moved} differs from the parent's build at {tag}"
+        self.held |= moved
+
+    def turns(self, fn, timer):
+        """fn on the parent's kernels and on this tree's in turns (parent,
+        new, new, parent); timer(fn) gives a list of ms. Returns (ms,
+        parent_ms), each the median of its side's samples."""
+        times = {True: [], False: []}
+        for parent in (True, False, False, True):
+            with kernel_table(self.fns if parent else self.own):
+                times[parent] += timer(fn)
+        return statistics.median(times[False]), statistics.median(times[True])
 
 
-def assert_parent_equal(parent, name, out, *inputs):
-    """With --yardstick, kernel `name`'s result `out` must equal the
-    parent commit's on the same inputs, bit for bit."""
-    if parent is not None:
-        assert torch.equal(out, parent[name](*inputs)), \
-            f"{name} differs from the parent commit's kernel"
+def held(yard, fn, out, tag):
+    """With --yardstick, `out` = fn() must equal the parent's build's."""
+    if yard is not None:
+        yard.equal(fn, out, tag)
+
+
+def kernel_ms(fn, yard=None, timer=None):
+    """(fn's time, None), the median of timer(fn) (default: 20 CUDA-event
+    samples); with --yardstick (ms, the parent's build's ms), in turns."""
+    timer = timer or (lambda f: event_ms(f, 20))
+    if yard is None:
+        return statistics.median(timer(fn)), None
+    return yard.turns(fn, timer)
+
+
+def parent_line(parent_ms) -> str:
+    return ("" if parent_ms is None else
+            f"  parent {parent_ms:.4f} ms, bitwise equal")
 
 
 # ---------------------------------------------------------------------------
 # 2. kernels against their plain versions, with an overdraw tile
 # ---------------------------------------------------------------------------
 
-def phase_kernels(dev, parent=None):
+def phase_kernels(dev, yard=None):
     from gssr_tpu_torch.ops import blend as B
     g = torch.Generator(device="cpu").manual_seed(1)
     n = 20_000
@@ -590,33 +612,33 @@ def phase_kernels(dev, parent=None):
     cam = camera(256, 256).arrays(dev)
     attrs, ranges, tx, ty = blend_inputs(*(x.to(dev) for x in scene), cam,
                                          256, 256)
-    out_k = B.blend_fwd(attrs, ranges, tx, ty)
+    fwd = partial(B.blend_fwd, attrs, ranges, tx, ty)
+    out_k = fwd()
     out_p = B.blend_fwd_plain(attrs, ranges, tx, ty)
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
-    assert_parent_equal(parent, "blend_fwd", out_k, attrs, ranges, tx, ty)
+    held(yard, fwd, out_k, "kernels")
     saturated = int((out_k[..., 3] < 1e-3).sum())
     assert saturated > 0, "the overdraw tile did not saturate"
     cot = torch.randn(out_k.shape, generator=g).to(dev)
     bwd = partial(B.blend_bwd, attrs, ranges, out_k, cot, tx, ty)
-    bwd_v1 = partial(B.blend_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
-    d_k, d_v1 = bwd(), bwd_v1()
+    d_k = bwd()
     d_p = B.blend_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS), B.LIVE_ATTRS,
-                         bwd, bwd_v1)
-    fwd_ms = median_ms(lambda: B.blend_fwd(attrs, ranges, tx, ty), 20)
+    assert_backward(d_k, d_p, range(B.LIVE_ATTRS), B.LIVE_ATTRS, bwd)
+    held(yard, bwd, d_k, "kernels")
+    fwd_ms, fwd_parent_ms = kernel_ms(fwd, yard)
     fwd_plain_ms = median_ms(lambda: B.blend_fwd_plain(attrs, ranges, tx,
                                                        ty), 3)
     bwd_plain_ms = median_ms(lambda: B.blend_bwd_plain(attrs, ranges, out_k,
                                                        cot, tx, ty), 3)
-    v1_ms, bwd_ms = turns_ms(bwd_v1, bwd)
+    bwd_ms, bwd_parent_ms = kernel_ms(bwd, yard)
     print(f"[kernels] 256x256, {n} gaussians, {attrs.shape[1]} instance "
           f"slots, {saturated} saturated pixels")
     print(f"[kernels] blend_fwd max|err| {max_err(out_k, out_p):.3e}  "
           f"{fwd_ms:.4f} ms  plain {fwd_plain_ms:.4f} ms"
-          + ("; bitwise equal to the parent's" if parent else ""))
+          + parent_line(fwd_parent_ms))
     print(f"[kernels] blend_bwd max|err| {max_err(d_k, d_p):.3e}  "
-          f"{bwd_ms:.4f} ms  v1 {v1_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  "
-          f"deterministic: yes; bitwise equal to v1: yes")
+          f"{bwd_ms:.4f} ms  plain {bwd_plain_ms:.4f} ms  deterministic: yes"
+          + parent_line(bwd_parent_ms))
 
 
 def overdraw_scene(g, n, n_dense, scale_dim):
@@ -704,7 +726,7 @@ def assert_observe_cases(obs, ranges, want):
     assert 0 < later <= 256 - 32 - 1, later
 
 
-def phase_kernels2d(dev):
+def phase_kernels2d(dev, yard=None):
     """Both surfel kernels against their plain versions at 256x256 with
     ~20k random surfels and a dense overdraw stack: the early stop and
     the median both fire; the backward runs twice, bit for bit."""
@@ -719,10 +741,10 @@ def phase_kernels2d(dev):
     attrs, ranges, tx, ty = blend2d_inputs(*(x.to(dev) for x in scene), cam,
                                            256, 256)
     fwd = partial(B.blend2d_fwd, attrs, ranges, tx, ty)
-    fwd_v1 = partial(B.blend2d_fwd_v1, attrs, ranges, tx, ty)
     out_k = fwd()
     out_p = B.blend2d_fwd_plain(attrs, ranges, tx, ty)
-    assert_forward_pair(out_k, fwd_v1(), out_p, B.O_SELPOS)
+    assert_surfel_forward(out_k, out_p, B.O_SELPOS)
+    held(yard, fwd, out_k, "kernels2d")
     saturated = int((out_k[..., B.O_T] < 1e-3).sum())
     medians = int((out_k[..., B.O_SELPOS] >= 0).sum())
     assert saturated > 0, "the overdraw stack did not saturate"
@@ -730,24 +752,22 @@ def phase_kernels2d(dev):
     cot = torch.randn(out_k.shape, generator=g).to(dev)
     cot[..., list(B.NO_GRAD_ROWS)] = 0.0
     bwd = partial(B.blend2d_bwd, attrs, ranges, out_k, cot, tx, ty)
-    bwd_v1 = partial(B.blend2d_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
-    d_k, d_v1 = bwd(), bwd_v1()
+    d_k = bwd()
     d_p = B.blend2d_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
-    assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2), B.LIVE_ATTRS2,
-                         bwd, bwd_v1)
-    fwd_v1_ms, fwd_ms = turns_ms(fwd_v1, fwd)
-    v1_ms, bwd_ms = turns_ms(bwd_v1, bwd)
+    assert_backward(d_k, d_p, range(B.LIVE_ATTRS2), B.LIVE_ATTRS2, bwd)
+    held(yard, bwd, d_k, "kernels2d")
+    fwd_ms, fwd_parent_ms = kernel_ms(fwd, yard)
+    bwd_ms, bwd_parent_ms = kernel_ms(bwd, yard)
     print(f"[kernels2d] 256x256, {n} surfels, {attrs.shape[1]} instance "
           f"slots, {saturated} saturated pixels, {medians} with a median")
     print(f"[kernels2d] blend2d_fwd max|err| {max_err(out_k, out_p):.3e}  "
-          f"{fwd_ms:.4f} ms  v1 {fwd_v1_ms:.4f} ms  bitwise equal to v1: "
-          f"yes")
+          f"{fwd_ms:.4f} ms" + parent_line(fwd_parent_ms))
     print(f"[kernels2d] blend2d_bwd max|err| {max_err(d_k, d_p):.3e}  "
-          f"{bwd_ms:.4f} ms  v1 max|err| {max_err(d_v1, d_p):.3e}  "
-          f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: yes")
+          f"{bwd_ms:.4f} ms  deterministic: yes"
+          + parent_line(bwd_parent_ms))
 
 
-def phase_kernels_pgsr(dev, parent=None):
+def phase_kernels_pgsr(dev, yard=None):
     """The three planar kernels against their plain versions at 256x256
     with ~20k gaussians carrying random camera-space normals and plane
     distances, and a dense overdraw stack: the early stop and the T > 0.5
@@ -768,65 +788,55 @@ def phase_kernels_pgsr(dev, parent=None):
     attrs, b, tx, ty = pgsr_inputs(
         *(x.to(dev) for x in scene + (normal, distance)), cam, 256, 256)
     ranges = b.tile_ranges
-    out_k = B.blend_pgsr_fwd(attrs, ranges, tx, ty)
+    fwd = partial(B.blend_pgsr_fwd, attrs, ranges, tx, ty)
+    out_k = fwd()
     out_p = B.blend_pgsr_fwd_plain(attrs, ranges, tx, ty)
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
-    assert_parent_equal(parent, "blend_pgsr_fwd", out_k, attrs, ranges, tx,
-                        ty)
+    held(yard, fwd, out_k, "kernels pgsr")
     saturated = int((out_k[..., B.PO_T] < 1e-3).sum())
     assert saturated > 0, "the overdraw stack did not saturate"
-    obs_k = B.blend_pgsr_observe(attrs, ranges, tx, ty)
+    obs = partial(B.blend_pgsr_observe, attrs, ranges, tx, ty)
+    obs_k = obs()
     assert torch.equal(obs_k, B.blend_pgsr_obs_plain(attrs, ranges, tx, ty))
-    assert_parent_equal(parent, "blend_pgsr_obs", obs_k, attrs, ranges, tx,
-                        ty)
+    held(yard, obs, obs_k, "kernels pgsr")
     a_c, r_c, tx_c, ty_c, want = observe_cases()
     a_c, r_c = a_c.to(dev), r_c.to(dev)
-    obs_c = B.blend_pgsr_observe(a_c, r_c, tx_c, ty_c)
+    obs_cases = partial(B.blend_pgsr_observe, a_c, r_c, tx_c, ty_c)
+    obs_c = obs_cases()
     assert torch.equal(obs_c, B.blend_pgsr_obs_plain(a_c, r_c, tx_c, ty_c))
     assert_observe_cases(obs_c, r_c, want)
-    assert_parent_equal(parent, "blend_pgsr_obs", obs_c, a_c, r_c, tx_c,
-                        ty_c)
+    held(yard, obs_cases, obs_c, "observe_cases")
     pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
     observed = int(obs_k.sum())
     assert 0 < observed < contrib, \
         f"the T > 0.5 cut-off did not fire ({observed} of {contrib})"
     cot = torch.randn(out_k.shape, generator=g).to(dev)
     bwd = partial(B.blend_pgsr_bwd, attrs, ranges, out_k, cot, tx, ty)
-    bwd_v1 = partial(B.blend_pgsr_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
-    d_k, d_v1 = bwd(), bwd_v1()
+    d_k = bwd()
     d_p = B.blend_pgsr_bwd_plain(attrs, ranges, out_k, cot, tx, ty)
     # every row but the observe count is a gradient
     grad_rows = [r for r in range(B.NUM_ATTRS_P) if r != B.P_OBS]
-    assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P, bwd,
-                         bwd_v1)
-    for d in (d_k, d_v1):
-        assert torch.equal(d[B.P_OBS], d_p[B.P_OBS])
-        assert torch.equal(d[B.P_OBS], obs_k)
+    assert_backward(d_k, d_p, grad_rows, B.NUM_ATTRS_P, bwd)
+    assert torch.equal(d_k[B.P_OBS], d_p[B.P_OBS])
+    assert torch.equal(d_k[B.P_OBS], obs_k)
     assert torch.equal(per_gaussian(d_k[B.P_OBS], b), per_gaussian(obs_k, b))
-    fwd_ms = median_ms(lambda: B.blend_pgsr_fwd(attrs, ranges, tx, ty), 20)
-    obs = partial(B.blend_pgsr_observe, attrs, ranges, tx, ty)
-    if parent is None:
-        obs_line = f"{median_ms(obs, 20):.4f} ms"
-    else:
-        base_ms, obs_ms = turns_ms(partial(parent["blend_pgsr_obs"], attrs,
-                                           ranges, tx, ty), obs)
-        obs_line = (f"{obs_ms:.4f} ms  parent {base_ms:.4f} ms; bitwise "
-                    f"equal to the parent's")
-    v1_ms, bwd_ms = turns_ms(bwd_v1, bwd)
+    held(yard, bwd, d_k, "kernels pgsr")
+    fwd_ms, fwd_parent_ms = kernel_ms(fwd, yard)
+    obs_ms, obs_parent_ms = kernel_ms(obs, yard)
+    bwd_ms, bwd_parent_ms = kernel_ms(bwd, yard)
     print(f"[kernels pgsr] 256x256, {n} gaussians, {attrs.shape[1]} "
           f"instance slots, {saturated} saturated pixels; {contrib} "
           f"contributing pairs, {observed} of them observed (D > 0.5)")
     print(f"[kernels pgsr] blend_pgsr_fwd max|err| "
           f"{max_err(out_k, out_p):.3e}  {fwd_ms:.4f} ms"
-          + ("; bitwise equal to the parent's" if parent else ""))
+          + parent_line(fwd_parent_ms))
     print(f"[kernels pgsr] blend_pgsr_obs exact, and on observe_cases' "
           f"stacks (D exactly 0.5, the 0.5 point at either side of a chunk "
           f"boundary, a warp done beside walking ones, a tile that never "
-          f"reaches 0.5)  {obs_line}")
+          f"reaches 0.5)  {obs_ms:.4f} ms" + parent_line(obs_parent_ms))
     print(f"[kernels pgsr] blend_pgsr_bwd max|err| {max_err(d_k, d_p):.3e}  "
-          f"{bwd_ms:.4f} ms  v1 max|err| {max_err(d_v1, d_p):.3e}  "
-          f"{v1_ms:.4f} ms  deterministic: yes; bitwise equal to v1: yes; "
-          f"observe row = observe kernel, per slot and per gaussian")
+          f"{bwd_ms:.4f} ms  deterministic: yes; observe row = observe "
+          f"kernel, per slot and per gaussian" + parent_line(bwd_parent_ms))
 
 
 # ---------------------------------------------------------------------------
@@ -957,7 +967,7 @@ def mask_work(args):
             9 * n + 16 * n_vis + 24 * n_work)
 
 
-def phase_tile_mask(dev):
+def phase_tile_mask(dev, yard=None):
     """csrc/projection.cu's intersect mask against
     tile_intersect_mask_plain on the same CUDA tensors, element for
     element: mask_cases' rows (and N = 0), then the mask inputs of one
@@ -970,6 +980,8 @@ def phase_tile_mask(dev):
     before = P.LAUNCHES["tile_mask"]
     mask, count = P.tile_intersect_mask(*cases)
     assert P.LAUNCHES["tile_mask"] == before + 1
+    held(yard, partial(P.tile_intersect_mask, *cases), (mask, count),
+         "mask_cases")
     for want in (P.tile_intersect_mask_plain(*cases),
                  P.tile_intersect_mask_plain(*cpu)):
         assert torch.equal(mask.cpu(), want[0].cpu()), "mask differs"
@@ -991,15 +1003,17 @@ def phase_tile_mask(dev):
         want = P.tile_intersect_mask_plain(*args)
         assert torch.equal(mask, want[0]) and torch.equal(count, want[1]), \
             f"tile_mask differs from the plain loop at {cell}'s inputs"
+        fn = partial(P.tile_intersect_mask, *args)
+        held(yard, fn, (mask, count), cell)
         ops, nbytes = mask_work(args)
         bound_ms, bound_by = bound(ops, nbytes)
-        ms = device_ms(lambda: P.tile_intersect_mask(*args))
+        ms, parent_ms = kernel_ms(fn, yard, timer=lambda f: [device_ms(f)])
         visible = args[4]
         print(f"[kernels] tile_mask at {cell}: {visible.numel()} slots, "
               f"{int(visible.sum())} visible, {int((count > 0).sum())} "
               f"touching a tile; equal to the plain loop; {ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {ops} operations, "
-              f"{nbytes} bytes)", flush=True)
+              f"{nbytes} bytes)" + parent_line(parent_ms), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1092,13 +1106,13 @@ def expand_work(args):
             + 4 * fill_starts.numel() + 4)
 
 
-def phase_bin_expand(dev):
+def phase_bin_expand(dev, yard=None):
     """csrc/binning.cu's instance expansion against expand_instances_plain
-    on the same CUDA tensors and on the CPU, bit for bit, and its yardstick
-    design (expand_instances_v1) against it: expand_cases' inputs, then
-    those of one training step of each EXPAND_CELLS cell, whose step must
-    launch the kernel once a render; there both designs (in turns) and the
-    plain chain are timed (device_ms) beside the kernel's byte bound."""
+    on the same CUDA tensors and on the CPU, bit for bit: expand_cases'
+    inputs, then those of one training step of each EXPAND_CELLS cell,
+    whose step must launch the kernel once a render; there the kernel and
+    the plain chain are timed (device_ms) beside the kernel's byte
+    bound."""
     from gssr_tpu_torch.ops import binning as B
 
     def check(args, got, tag):
@@ -1109,10 +1123,7 @@ def phase_bin_expand(dev):
                 assert torch.equal(g.cpu(), w.cpu()), \
                     f"bin_expand's {what} differs from the plain chain's " \
                     f"at {tag}"
-        for g, w, what in zip(B.expand_instances_v1(*args), got,
-                              ("key", "payload")):
-            assert torch.equal(g, w), \
-                f"bin_expand_v1's {what} differs from bin_expand's at {tag}"
+        held(yard, partial(B.expand_instances, *args), got, tag)
 
     for name, case in expand_cases().items():
         args = expand_inputs(case, dev)
@@ -1122,7 +1133,7 @@ def phase_bin_expand(dev):
         check(args, got, name)
         print(f"[kernels] bin_expand {name}: {args[1].numel()} gaussians, "
               f"{args[6]} slots, equal to the plain chain's (on the card "
-              f"and the CPU) and to bin_expand_v1's", flush=True)
+              f"and the CPU)", flush=True)
     for cell in EXPAND_CELLS:
         calls, launched = cell_calls(cell, CELL_SEED, dev, B,
                                      "expand_instances", "bin_expand")
@@ -1132,19 +1143,15 @@ def phase_bin_expand(dev):
             check(args, got, tag)
             nbytes = expand_work(args)
             bound_ms, bound_by = bound(0, nbytes)
-            times = {B.expand_instances: [], B.expand_instances_v1: []}
-            for fn in (B.expand_instances_v1, B.expand_instances,
-                       B.expand_instances, B.expand_instances_v1):
-                times[fn].append(device_ms(partial(fn, *args)))
-            ms = statistics.mean(times[B.expand_instances])
-            v1_ms = statistics.mean(times[B.expand_instances_v1])
+            ms, parent_ms = kernel_ms(partial(B.expand_instances, *args),
+                                      yard, timer=lambda f: [device_ms(f)])
             plain_ms = device_ms(lambda: B.expand_instances_plain(*args),
                                  reps=20)
             print(f"[kernels] bin_expand at {tag}: {args[1].numel()} "
-                  f"gaussians, {args[6]} slots, equal to the plain chain "
-                  f"and to v1; {ms:.4f} ms, v1 {v1_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}: {nbytes} bytes), plain "
-                  f"chain {plain_ms:.3f} ms", flush=True)
+                  f"gaussians, {args[6]} slots, equal to the plain chain; "
+                  f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{nbytes} bytes), plain chain {plain_ms:.3f} ms"
+                  + parent_line(parent_ms), flush=True)
         del calls
 
 
@@ -1360,9 +1367,8 @@ def phase_train(dev, root, card_line, method):
     # every render bins its instances through the expansion kernel
     assert launches["bin_expand"] >= renders, (launches["bin_expand"],
                                                renders)
-    # no render reads an observe count, and none runs a yardstick kernel
-    assert all(launches[k] == 0 for k in V1_KERNELS + ("blend_pgsr_obs",)), \
-        launches
+    # no render reads an observe count
+    assert launches["blend_pgsr_obs"] == 0, launches
     psnr = trainer.evals[STEPS]["eval_psnr"]
     print(f"{tag} {STEPS} steps in {wall:.1f} s (eval and save included); "
           f"L1 + D-SSIM loss epoch 1 {first:.5f} -> epoch "
@@ -1569,7 +1575,7 @@ def phase_split(root, video_run, card_line):
         assert len(hist) == STEPS and all(math.isfinite(h[1]) for h in hist)
         for k in SURFEL_PAIR:
             assert launches[k] >= STEPS, launches
-        assert all(launches[k] == 0 for k in V1_KERNELS + ("blend_pgsr_obs",))
+        assert launches["blend_pgsr_obs"] == 0, launches
         log = trainer.scene.anchor_log
         step_ms = [1e3 * (b[3] - a[3]) for a, b in zip(hist[1:], hist[2:])]
         peak = torch.cuda.max_memory_allocated()
@@ -2940,20 +2946,17 @@ def print_cull_shares(tag, c):
 
 
 def report_row(name, source, replaces, launches, err, fn, plain_ms, ops,
-               nbytes, v1=None, parent=None):
+               nbytes, yard=None):
     """The kernel's row of the {"kernels": [...]} line; plain_ms is the
-    plain version's time (timed). With its v1 kernel `v1`, or the parent
-    commit's kernel `parent`, the two are timed in turns (v1, new, new,
-    v1) and the row gains "v1_ms" or "parent_ms"."""
+    plain version's time (timed). With --yardstick (`yard`), fn is timed
+    in turns with the parent's build (parent, new, new, parent) and the
+    row gains "parent_ms"."""
     bound_ms, bound_by = bound(ops, nbytes)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err}
-    base = v1 if v1 is not None else parent
-    if base is None:
-        row["ms"] = median_ms(fn, 20)
-    else:
-        base_ms, row["ms"] = turns_ms(base, fn)
-        row["v1_ms" if v1 is not None else "parent_ms"] = base_ms
+    row["ms"], parent_ms = kernel_ms(fn, yard)
+    if parent_ms is not None:
+        row["parent_ms"] = parent_ms
     row.update(plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=None)
     return row
@@ -2984,30 +2987,24 @@ def assert_zero_rows(d_k, live):
     assert torch.equal(d_k[live:], torch.zeros_like(d_k[live:]))
 
 
-def assert_backward_pair(d_k, d_v1, d_p, rows, live, again, again_v1):
-    """A redesigned backward kernel's result d_k and its v1 kernel's d_v1,
-    each against the plain version's d_p as a whole and row by row (the
-    gradient rows `rows`), rows from `live` on zero, and bit for bit on a
-    second run (again, again_v1); then against each other, bit for bit."""
-    for d, rerun in ((d_k, again), (d_v1, again_v1)):
-        torch.testing.assert_close(d, d_p, **BWD_TOL)
-        assert_rows_close(d, d_p, rows)
-        assert_zero_rows(d, live)
-        assert torch.equal(d, rerun()), "a backward is not deterministic"
-    assert torch.equal(d_k, d_v1), "a backward differs from its v1 kernel"
+def assert_backward(d_k, d_p, rows, live, again):
+    """A backward kernel's result d_k against the plain version's d_p as a
+    whole and row by row (the gradient rows `rows`), rows from `live` on
+    zero, and bit for bit on a second run (again)."""
+    torch.testing.assert_close(d_k, d_p, **BWD_TOL)
+    assert_rows_close(d_k, d_p, rows)
+    assert_zero_rows(d_k, live)
+    assert torch.equal(d_k, again()), "a backward is not deterministic"
 
 
-def assert_forward_pair(out_k, out_v1, out_p, sel):
-    """A redesigned forward kernel's maps out_k and its v1 kernel's out_v1:
-    each against the plain version's out_p, the median's sorted position
-    (channel `sel`) exactly, and each other bit for bit on every channel."""
-    for out in (out_k, out_v1):
-        torch.testing.assert_close(out, out_p, **FWD_TOL)
-        assert torch.equal(out[..., sel], out_p[..., sel])
-    assert torch.equal(out_k, out_v1), "a forward differs from its v1 kernel"
+def assert_surfel_forward(out_k, out_p, sel):
+    """The surfel forward kernel's maps out_k against the plain version's
+    out_p, the median's sorted position (channel `sel`) exactly."""
+    torch.testing.assert_close(out_k, out_p, **FWD_TOL)
+    assert torch.equal(out_k[..., sel], out_p[..., sel])
 
 
-def phase_report(trainer, launches, dev, parent=None):
+def phase_report(trainer, launches, dev, yard=None):
     """The vanilla pair at the 3dgs path's own inputs (the trained model,
     camera 0): its rows of the {"kernels": [...]} line."""
     from gssr_tpu_torch.ops.sh import sh_to_color
@@ -3022,7 +3019,7 @@ def phase_report(trainer, launches, dev, parent=None):
             g.get_opacity(p)[:, 0], color, cam, scene.width, scene.height,
             active=state.active)
     return vanilla_pair("[report 3dgs]", scene, cam_h, cam, inputs,
-                        launches, parent)
+                        launches, yard)
 
 
 @torch.no_grad()
@@ -3044,16 +3041,16 @@ def print_rows(tag, rows, card_line):
     """Report rows printed apart: the {"kernels": [...]} line keeps one row
     per kernel, at its own path's inputs."""
     for row in rows:
-        base = row.get("v1_ms", row.get("parent_ms"))
+        base = row.get("parent_ms")
         print(f"{tag} {row['name']}: max|err| {row['max_abs_err']:.3e}, "
               f"{row['ms']:.4f} ms"
-              + (f" (v1 {base:.4f} ms)" if base is not None else "")
+              + (f" (parent {base:.4f} ms)" if base is not None else "")
               + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
               f"plain {row['plain_ms']:.1f} ms, {row['launches']} launches "
               f"on the path  | {card_line}", flush=True)
 
 
-def phase_report_scaffold(trainer, launches, dev, card_line):
+def phase_report_scaffold(trainer, launches, dev, card_line, yard=None):
     """The vanilla pair at the scaffold-gs path's own inputs: the neural
     gaussians that the trained anchors and MLP decode for camera 0. Its
     numbers are printed here; the {"kernels": [...]} line keeps the 3dgs
@@ -3068,26 +3065,26 @@ def phase_report_scaffold(trainer, launches, dev, card_line):
     print(f"{tag} camera 0: {int(visible.sum())} visible anchors of "
           f"{int(state.n_active)}, {int(ng.mask.sum())} of "
           f"{ng.mask.shape[0]} neural gaussians with opacity > 0")
-    print_rows(tag, vanilla_pair(tag, scene, cam_h, cam, inputs, launches),
-               card_line)
+    print_rows(tag, vanilla_pair(tag, scene, cam_h, cam, inputs, launches,
+                                 yard), card_line)
 
 
-def vanilla_pair(tag, scene, cam_h, cam, inputs, launches, parent=None):
+def vanilla_pair(tag, scene, cam_h, cam, inputs, launches, yard=None):
     """The vanilla forward and backward against their plain versions on
     `inputs` (blend_inputs' tuple, from camera cam_h of `scene`), under
-    the cotangent of the scene's image loss scaled to unit size; the
-    backward also against its v1 kernel, bit for bit, and timed in turns
-    with it; with `parent`, the forward against the parent commit's.
-    Prints the cull shares; returns the two report rows."""
+    the cotangent of the scene's image loss scaled to unit size; with
+    --yardstick, both against the parent's build. Prints the cull shares;
+    returns the two report rows."""
     from types import SimpleNamespace
 
     from gssr_tpu_torch.ops import blend as B
     attrs, ranges, tx, ty = inputs
-    out_k = B.blend_fwd(attrs, ranges, tx, ty)
+    fwd = partial(B.blend_fwd, attrs, ranges, tx, ty)
+    out_k = fwd()
     out_p, fwd_plain_ms = timed(lambda: B.blend_fwd_plain(attrs, ranges, tx,
                                                           ty))
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
-    assert_parent_equal(parent, "blend_fwd", out_k, attrs, ranges, tx, ty)
+    held(yard, fwd, out_k, tag)
     # the cotangent of the training loss itself, scaled to unit size: the
     # loss is a mean over every pixel channel, so its raw cotangent (~1e-7)
     # would leave every gradient far below the absolute tolerance
@@ -3099,13 +3096,12 @@ def vanilla_pair(tag, scene, cam_h, cam, inputs, launches, parent=None):
     (cot,) = torch.autograd.grad(loss, f)
     cot = (cot / cot.abs().max()).contiguous()
     bwd = partial(B.blend_bwd, attrs, ranges, out_k, cot, tx, ty)
-    bwd_v1 = partial(B.blend_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
-    d_k, d_v1 = bwd(), bwd_v1()
+    d_k = bwd()
     d_p, bwd_plain_ms = timed(lambda: B.blend_bwd_plain(attrs, ranges, out_k,
                                                         cot, tx, ty))
     assert_live_rows(d_p, B.LIVE_ATTRS)
-    assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS), B.LIVE_ATTRS,
-                         bwd, bwd_v1)
+    assert_backward(d_k, d_p, range(B.LIVE_ATTRS), B.LIVE_ATTRS, bwd)
+    held(yard, bwd, d_k, tag)
 
     pairs, _ = B.blend_pair_count(attrs, ranges, tx, ty)
     cull = gauss_cull_counts(attrs, ranges, tx, ty)
@@ -3115,25 +3111,22 @@ def vanilla_pair(tag, scene, cam_h, cam, inputs, launches, parent=None):
     hw = out_k.shape[0] * out_k.shape[1]
     live_bytes = B.LIVE_ATTRS * n_inst * 4 + ranges.numel() * 4
     src = "gssr_tpu_torch/csrc/blend.cu"
-    fwd = partial(B.blend_fwd, attrs, ranges, tx, ty)
     rows = [
         report_row("blend_fwd", src, "gssr_tpu/ops/blend_pallas.py:158",
                    launches["blend_fwd"], max_err(out_k, out_p), fwd,
                    fwd_plain_ms, gauss_pair_ops(FWD_OPS_PER_PAIR, cull),
-                   live_bytes + hw * 16,
-                   parent=parent and partial(parent["blend_fwd"], attrs,
-                                             ranges, tx, ty)),
+                   live_bytes + hw * 16, yard),
         report_row("blend_bwd", src, "gssr_tpu/ops/blend_pallas.py:265",
                    launches["blend_bwd"], max_err(d_k, d_p), bwd,
                    bwd_plain_ms, gauss_pair_ops(BWD_OPS_PER_PAIR, cull),
-                   live_bytes + 2 * hw * 16 + attrs.numel() * 4, v1=bwd_v1)]
+                   live_bytes + 2 * hw * 16 + attrs.numel() * 4, yard)]
     print(f"{tag} blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs "
           f"before saturation", flush=True)
     return rows
 
 
-def phase_report2d(trainer, launches, dev):
+def phase_report2d(trainer, launches, dev, yard=None):
     """Both surfel kernels against their plain versions at the 2dgs path's
     own inputs (the trained model, camera 0): their rows of the
     {"kernels": [...]} line."""
@@ -3148,10 +3141,11 @@ def phase_report2d(trainer, launches, dev):
             p["xyz"], g.get_scaling(p), g.get_rotation(p),
             g.get_opacity(p)[:, 0], color, cam, scene.width, scene.height,
             active=state.active)
-    return surfel_pair("[report 2dgs]", scene, cam_h, cam, inputs, launches)
+    return surfel_pair("[report 2dgs]", scene, cam_h, cam, inputs, launches,
+                       yard)
 
 
-def phase_report_octree2d(trainer, launches, dev, card_line):
+def phase_report_octree2d(trainer, launches, dev, card_line, yard=None):
     """Both surfel kernels at the octree-2dgs path's own inputs: the
     neural gaussians that its trained anchors and MLP decode for camera 0
     through its LOD mask, as surfels (their first two scales). Printed
@@ -3166,19 +3160,18 @@ def phase_report_octree2d(trainer, launches, dev, card_line):
     print(f"{tag} camera 0: {int(visible.sum())} visible anchors of "
           f"{int(state.n_active)}, {int(ng.mask.sum())} of "
           f"{ng.mask.shape[0]} neural gaussians with opacity > 0")
-    print_rows(tag, surfel_pair(tag, scene, cam_h, cam, inputs, launches),
-               card_line)
+    print_rows(tag, surfel_pair(tag, scene, cam_h, cam, inputs, launches,
+                                yard), card_line)
 
 
-def surfel_pair(tag, scene, cam_h, cam, inputs, launches):
+def surfel_pair(tag, scene, cam_h, cam, inputs, launches, yard=None):
     """Both surfel kernels against their plain versions on `inputs`
     (blend2d_inputs' tuple, from camera cam_h of `scene`), under the
     cotangent of the scene's image loss plus the 2DGS regularisers, both
     live (past step 7000, lambda_dist 1000, depth_ratio 0.5), plus a
     random one on median_normal, each channel group scaled to a largest
-    entry of 1; the forward and backward also against their v1 kernels,
-    bit for bit, and timed in turns with them. Prints the cull shares;
-    returns the two report rows."""
+    entry of 1; with --yardstick, both against the parent's build. Prints
+    the cull shares; returns the two report rows."""
     import dataclasses
     from types import SimpleNamespace
 
@@ -3187,11 +3180,11 @@ def surfel_pair(tag, scene, cam_h, cam, inputs, launches):
     from gssr_tpu_torch.scene.twodgs import surfel_reg_losses
     attrs, ranges, tx, ty = inputs
     fwd = partial(B.blend2d_fwd, attrs, ranges, tx, ty)
-    fwd_v1 = partial(B.blend2d_fwd_v1, attrs, ranges, tx, ty)
     out_k = fwd()
     out_p, fwd_plain_ms = timed(lambda: B.blend2d_fwd_plain(attrs, ranges,
                                                             tx, ty))
-    assert_forward_pair(out_k, fwd_v1(), out_p, B.O_SELPOS)
+    assert_surfel_forward(out_k, out_p, B.O_SELPOS)
+    held(yard, fwd, out_k, tag)
 
     cfg = dataclasses.replace(scene.config, lambda_dist=1000.0,
                               depth_ratio=0.5)
@@ -3220,12 +3213,11 @@ def surfel_pair(tag, scene, cam_h, cam, inputs, launches):
         cot[..., lo:hi] /= peak
     cot = cot.contiguous()
     bwd = partial(B.blend2d_bwd, attrs, ranges, out_k, cot, tx, ty)
-    bwd_v1 = partial(B.blend2d_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
-    d_k, d_v1 = bwd(), bwd_v1()
+    d_k = bwd()
     d_p, bwd_plain_ms = timed(lambda: B.blend2d_bwd_plain(
         attrs, ranges, out_k, cot, tx, ty))
-    assert_backward_pair(d_k, d_v1, d_p, range(B.LIVE_ATTRS2), B.LIVE_ATTRS2,
-                         bwd, bwd_v1)
+    assert_backward(d_k, d_p, range(B.LIVE_ATTRS2), B.LIVE_ATTRS2, bwd)
+    held(yard, bwd, d_k, tag)
     # the rows of the low-pass centre and of CA stay far below the others
     # (dL/dCA carries 1/pz), so no one cotangent puts every row above
     # 100 x atol while the largest rows' rounding stays inside atol; the
@@ -3234,8 +3226,7 @@ def surfel_pair(tag, scene, cam_h, cam, inputs, launches):
     print(f"{tag} largest plain gradient per live row: "
           f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
           f"{int((row_max > 100 * BWD_TOL['atol']).sum())} of "
-          f"{B.LIVE_ATTRS2} rows above 100 x atol; v1 max|err| "
-          f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: yes")
+          f"{B.LIVE_ATTRS2} rows above 100 x atol")
 
     pairs, contrib = B.blend2d_pair_count(attrs, ranges, tx, ty)
     cull = surfel_cull_counts(attrs, ranges, tx, ty)
@@ -3253,12 +3244,11 @@ def surfel_pair(tag, scene, cam_h, cam, inputs, launches):
         report_row("blend2d_fwd", src, "gssr_tpu/ops/blend2d_pallas.py:127",
                    launches["blend2d_fwd"], max_err(out_k, out_p), fwd,
                    fwd_plain_ms, pair_ops + FWD2_OPS_PER_CONTRIB * contrib,
-                   live_bytes + out_bytes, v1=fwd_v1),
+                   live_bytes + out_bytes, yard),
         report_row("blend2d_bwd", src, "gssr_tpu/ops/blend2d_pallas.py:269",
                    launches["blend2d_bwd"], max_err(d_k, d_p), bwd,
                    bwd_plain_ms, pair_ops + BWD2_OPS_PER_CONTRIB * contrib,
-                   live_bytes + 2 * out_bytes + attrs.numel() * 4,
-                   v1=bwd_v1)]
+                   live_bytes + 2 * out_bytes + attrs.numel() * 4, yard)]
     print(f"{tag} surfel blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs before "
           f"saturation, {contrib} contributing; loss terms {terms_line}",
@@ -3266,7 +3256,7 @@ def surfel_pair(tag, scene, cam_h, cam, inputs, launches):
     return rows
 
 
-def phase_report_pgsr(trainer, launches, dev, parent=None):
+def phase_report_pgsr(trainer, launches, dev, yard=None):
     """The three planar kernels at the pgsr path's own inputs (the trained
     model, camera 0, and the neighbour drawn for it): their rows of the
     {"kernels": [...]} line."""
@@ -3289,10 +3279,11 @@ def phase_report_pgsr(trainer, launches, dev, parent=None):
                                        state.active, scene.background,
                                        forward_observe=False)
     return planar_kernels("[report pgsr]", scene, cam_h, cam, inputs,
-                          (near_out, near_cam, near_gray), launches, parent)
+                          (near_out, near_cam, near_gray), launches, yard)
 
 
-def phase_report_scaffold_pgsr(trainer, launches, dev, card_line):
+def phase_report_scaffold_pgsr(trainer, launches, dev, card_line,
+                               yard=None):
     """The three planar kernels at the scaffold-pgsr path's own inputs: the
     neural gaussians that its trained anchors and MLP decode for camera 0,
     with the neighbour's render of the same anchors for the multi-view
@@ -3318,11 +3309,11 @@ def phase_report_scaffold_pgsr(trainer, launches, dev, card_line):
           f"{ng.mask.shape[0]} neural gaussians with opacity > 0")
     print_rows(tag, planar_kernels(tag, scene, cam_h, cam, inputs,
                                    (near_out, near_cam, near_gray),
-                                   launches), card_line)
+                                   launches, yard), card_line)
 
 
 def planar_kernels(tag, scene, cam_h, cam, inputs, near, launches,
-                   parent=None):
+                   yard=None):
     """The three planar kernels against their plain versions on `inputs`
     (pgsr_inputs' tuple, from camera cam_h of `scene`), under the
     cotangent of the pgsr multi-view loss at the end of training through
@@ -3332,7 +3323,8 @@ def planar_kernels(tag, scene, cam_h, cam, inputs, near, launches,
     the stated tolerance and row by row in units of each row's largest
     plain value; rows 14-15 (the abs screen gradients) as gradients, row
     13 (the observe count) exactly and equal to the observe kernel's
-    counts. Prints the cull shares; returns the three report rows."""
+    counts; with --yardstick, all three against the parent's build. Prints
+    the cull shares; returns the three report rows."""
     from types import SimpleNamespace
 
     from gssr_tpu_torch.ops import blend_pgsr as B
@@ -3341,18 +3333,18 @@ def planar_kernels(tag, scene, cam_h, cam, inputs, near, launches,
     attrs, b, tx, ty = inputs
     near_out, near_cam, near_gray = near
     ranges = b.tile_ranges
-    out_k = B.blend_pgsr_fwd(attrs, ranges, tx, ty)
+    fwd = partial(B.blend_pgsr_fwd, attrs, ranges, tx, ty)
+    out_k = fwd()
     out_p, fwd_plain_ms = timed(lambda: B.blend_pgsr_fwd_plain(attrs, ranges,
                                                                tx, ty))
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
-    assert_parent_equal(parent, "blend_pgsr_fwd", out_k, attrs, ranges, tx,
-                        ty)
-    obs_k = B.blend_pgsr_observe(attrs, ranges, tx, ty)
+    held(yard, fwd, out_k, tag)
+    obs = partial(B.blend_pgsr_observe, attrs, ranges, tx, ty)
+    obs_k = obs()
     obs_p, obs_plain_ms = timed(lambda: B.blend_pgsr_obs_plain(attrs, ranges,
                                                                tx, ty))
     assert torch.equal(obs_k, obs_p)
-    assert_parent_equal(parent, "blend_pgsr_obs", obs_k, attrs, ranges, tx,
-                        ty)
+    held(yard, obs, obs_k, tag)
 
     step = STEPS
     f = out_k.clone().requires_grad_(True)
@@ -3377,16 +3369,14 @@ def planar_kernels(tag, scene, cam_h, cam, inputs, near, launches,
         cot[..., lo:hi] /= peak
     cot = cot.contiguous()
     bwd = partial(B.blend_pgsr_bwd, attrs, ranges, out_k, cot, tx, ty)
-    bwd_v1 = partial(B.blend_pgsr_bwd_v1, attrs, ranges, out_k, cot, tx, ty)
-    d_k, d_v1 = bwd(), bwd_v1()
+    d_k = bwd()
     d_p, bwd_plain_ms = timed(lambda: B.blend_pgsr_bwd_plain(
         attrs, ranges, out_k, cot, tx, ty))
     grad_rows = [r for r in range(B.NUM_ATTRS_P) if r != B.P_OBS]
-    assert_backward_pair(d_k, d_v1, d_p, grad_rows, B.NUM_ATTRS_P, bwd,
-                         bwd_v1)
-    for d in (d_k, d_v1):
-        assert torch.equal(d[B.P_OBS], d_p[B.P_OBS])
-        assert torch.equal(d[B.P_OBS], obs_k)
+    assert_backward(d_k, d_p, grad_rows, B.NUM_ATTRS_P, bwd)
+    assert torch.equal(d_k[B.P_OBS], d_p[B.P_OBS])
+    assert torch.equal(d_k[B.P_OBS], obs_k)
+    held(yard, bwd, d_k, tag)
     # the normal and distance channels' cotangents are large at few pixels
     # (the plane depth divides by n . ray), so those rows can stay below
     # 100 x atol; the per-row comparison above holds each in units of its
@@ -3396,8 +3386,7 @@ def planar_kernels(tag, scene, cam_h, cam, inputs, near, launches,
     print(f"{tag} largest plain value per row: "
           f"{[float(f'{x:.3g}') for x in row_max.tolist()]}; "
           f"{int((grad_max > 100 * BWD_TOL['atol']).sum())} of "
-          f"{B.LIVE_ATTRS_P} live rows above 100 x atol; v1 max|err| "
-          f"{max_err(d_v1, d_p):.3e}, bitwise equal to v1: yes")
+          f"{B.LIVE_ATTRS_P} live rows above 100 x atol")
 
     pairs, contrib = blend_pair_count(attrs, ranges, tx, ty)
     cull = gauss_cull_counts(attrs, ranges, tx, ty)
@@ -3421,26 +3410,20 @@ def planar_kernels(tag, scene, cam_h, cam, inputs, near, launches,
     pallas = "gssr_tpu/ops/blend_pgsr_pallas.py"
     rows = [
         report_row("blend_pgsr_fwd", src, f"{pallas}:83",
-                   launches["blend_pgsr_fwd"], max_err(out_k, out_p),
-                   partial(B.blend_pgsr_fwd, attrs, ranges, tx, ty),
+                   launches["blend_pgsr_fwd"], max_err(out_k, out_p), fwd,
                    fwd_plain_ms, gauss_pair_ops(FWDP_OPS_PER_PAIR, cull)
                    + FWDP_OPS_PER_CONTRIB * contrib,
-                   live_bytes + map_bytes,
-                   parent=parent and partial(parent["blend_pgsr_fwd"],
-                                             attrs, ranges, tx, ty)),
+                   live_bytes + map_bytes, yard),
         report_row("blend_pgsr_obs", src, f"{pallas}:182",
-                   launches["blend_pgsr_obs"], max_err(obs_k, obs_p),
-                   lambda: B.blend_pgsr_observe(attrs, ranges, tx, ty),
+                   launches["blend_pgsr_obs"], max_err(obs_k, obs_p), obs,
                    obs_plain_ms, gauss_pair_ops(OBSP_OPS_PER_PAIR, obs_cull),
                    B.P_RGB * obs_cull.slots * 4 + range_bytes + n_inst * 4,
-                   parent=parent and partial(parent["blend_pgsr_obs"],
-                                             attrs, ranges, tx, ty)),
+                   yard),
         report_row("blend_pgsr_bwd", src, f"{pallas}:216",
                    launches["blend_pgsr_bwd"], max_err(d_k, d_p), bwd,
                    bwd_plain_ms, gauss_pair_ops(BWDP_OPS_PER_PAIR, cull)
                    + BWDP_OPS_PER_CONTRIB * contrib,
-                   live_bytes + 2 * map_bytes + attrs.numel() * 4,
-                   v1=bwd_v1)]
+                   live_bytes + 2 * map_bytes + attrs.numel() * 4, yard)]
     print(f"{tag} planar blend inputs: {tx * 16}x{ty * 16} padded, "
           f"{n_inst} instance slots, {pairs} (pixel, instance) pairs before "
           f"saturation, {contrib} contributing, {int(obs_k.sum())} observed; "
@@ -3452,9 +3435,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None)
     ap.add_argument("--yardstick", default=None, metavar="DIR",
-                    help="a checkout of the parent commit whose vanilla and "
-                         "planar forwards and observe count the current "
-                         "ones must equal bit for bit and are timed against")
+                    help="a checkout of the parent commit whose build of "
+                         "the kernels every kernel must equal bit for bit "
+                         "and is timed against")
     ap.add_argument("--convergence", action="store_true",
                     help="also train octree-2dgs and pgsr 2,400 steps on "
                          "gssr_tpu's structured scene, mesh them, and hold "
@@ -3471,12 +3454,12 @@ def main(argv=None) -> int:
     print(f"[card] {card_line}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    parent = phase_build(dev, args.yardstick)
-    phase_kernels(dev, parent)
-    phase_kernels2d(dev)
-    phase_kernels_pgsr(dev, parent)
-    phase_tile_mask(dev)
-    phase_bin_expand(dev)
+    yard = phase_build(dev, args.yardstick)
+    phase_kernels(dev, yard)
+    phase_kernels2d(dev, yard)
+    phase_kernels_pgsr(dev, yard)
+    phase_tile_mask(dev, yard)
+    phase_bin_expand(dev, yard)
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_scene(os.path.join(root, "scene"), dev)
@@ -3499,12 +3482,17 @@ def main(argv=None) -> int:
                               ("scaffold-gs", "scaffold"),
                               ("octree-2dgs", "octree2dgs")):
                 phase_profile(runs[m][0], f"{stem}_{suffix}{ext}", card_line)
-        rows = phase_report(*runs["3dgs"], dev, parent)
-        rows += phase_report2d(*runs["2dgs"], dev)
-        rows += phase_report_pgsr(*runs["pgsr"], dev, parent)
-        phase_report_scaffold(*runs["scaffold-gs"], dev, card_line)
-        phase_report_octree2d(*runs["octree-2dgs"], dev, card_line)
-        phase_report_scaffold_pgsr(*runs["scaffold-pgsr"], dev, card_line)
+        rows = phase_report(*runs["3dgs"], dev, yard)
+        rows += phase_report2d(*runs["2dgs"], dev, yard)
+        rows += phase_report_pgsr(*runs["pgsr"], dev, yard)
+        phase_report_scaffold(*runs["scaffold-gs"], dev, card_line, yard)
+        phase_report_octree2d(*runs["octree-2dgs"], dev, card_line, yard)
+        phase_report_scaffold_pgsr(*runs["scaffold-pgsr"], dev, card_line,
+                                   yard)
+        if yard is not None:
+            assert yard.held == yard.keys, sorted(yard.keys - yard.held)
+            print(f"[yardstick] {len(yard.held)} kernels bitwise equal to "
+                  f"{args.yardstick}'s build: {sorted(yard.held)}")
         if args.convergence:
             t1 = time.perf_counter()
             phase_convergence(root, dev, card_line)

@@ -25,12 +25,12 @@
 // the marks forward with a block-wide running max, the same forward fill
 // as the plain version's, over SLOTS slots instead of the buffer. Each
 // slot then reads its gaussian's record, which its neighbours share
-// through L1. bin_expand_v1_kernel is the other design, kept as the
-// yardstick (chip_smoke.py times both; PERF.md, kernel table): one thread
-// per gaussian writes its own run of slots (duplicateWithKeys of the
-// original CUDA rasterizer) and one thread per tile its filler run, so its
-// stores scatter across a warp and a large splat's run is one thread's
-// serial tail.
+// through L1. The other design, one thread per gaussian writing its own
+// run of slots (duplicateWithKeys of the original CUDA rasterizer) and one
+// thread per tile its filler run, scatters its stores across a warp and
+// leaves a large splat's run to one thread's serial tail; it was 2.2-4.1x
+// slower at every input measured and is gone (PERF.md section 6 keeps its
+// figures).
 //
 // Bit for bit: the tile of a slot comes from the integer quotient and
 // remainder of its rank in the rect by the rect's width, which is what the
@@ -206,70 +206,6 @@ bin_expand_kernel(const int* __restrict__ rect,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-bin_expand_v1_kernel(const int* __restrict__ rect,
-                     const float* __restrict__ depth,
-                     const int* __restrict__ tile_mask,
-                     const int* __restrict__ offsets,
-                     const int* __restrict__ fill_starts, int n, int cap,
-                     int tiles_x, int num_tiles, int depth_bits,
-                     int* __restrict__ key, int* __restrict__ payload) {
-  const long long i = static_cast<long long>(blockIdx.x) * THREADS +
-                      threadIdx.x;
-  const unsigned depth_mask = (1u << depth_bits) - 1u;
-  const unsigned sign = 1u << 31;
-  if (i < n) {
-    const int g = static_cast<int>(i);
-    const int start = g > 0 ? offsets[g - 1] : 0, end = offsets[g];
-    if (end <= start) return;
-    const int x0 = rect[4 * g], y0 = rect[4 * g + 1];
-    const int rw = max(rect[4 * g + 2] - x0, 1);
-    const unsigned pack = static_cast<unsigned>(x0) |
-                          (static_cast<unsigned>(y0) << 10) |
-                          (static_cast<unsigned>(rw - 1) << 20);
-    const int px = static_cast<int>(pack & 0x3FFu);
-    const int py = static_cast<int>((pack >> 10) & 0x3FFu);
-    const int pw = static_cast<int>((pack >> 20) & 0x3FFu) + 1;
-    const int bits = __float_as_int(depth[g]);
-    const unsigned dq =
-        static_cast<unsigned>(bits >> (31 - depth_bits)) & depth_mask;
-    const unsigned m = tile_mask != nullptr
-                           ? static_cast<unsigned>(tile_mask[g]) : ~0u;
-    const unsigned real = static_cast<unsigned>(g) | (1u << 29);
-    int row = 0, col = 0;
-    for (int local = 0; local < end - start; ++local) {
-      const unsigned tile = static_cast<unsigned>(py + row) *
-                                static_cast<unsigned>(tiles_x) +
-                            static_cast<unsigned>(px + col);
-      const unsigned hit = local < 32 ? (m >> local) & 1u : 1u;
-      key[start + local] = static_cast<int>(((tile << depth_bits) | dq) ^
-                                            sign);
-      payload[start + local] = static_cast<int>(real | (hit << 30));
-      if (++col == pw) {
-        col = 0;
-        ++row;
-      }
-    }
-  } else if (i < static_cast<long long>(n) + num_tiles) {
-    // a tile's filler run; the last tile's thread also writes the slots
-    // past the padded total (fillers of tile 0)
-    const int t = static_cast<int>(i - n);
-    const int kv = static_cast<int>(
-        ((static_cast<unsigned>(t) << depth_bits) | depth_mask) ^ sign);
-    for (int s = fill_starts[t]; s < fill_starts[t + 1]; ++s) {
-      key[s] = kv;
-      payload[s] = 0;
-    }
-    if (t == num_tiles - 1) {
-      const int k0 = static_cast<int>(depth_mask ^ sign);
-      for (int s = fill_starts[num_tiles]; s < cap; ++s) {
-        key[s] = k0;
-        payload[s] = 0;
-      }
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -291,26 +227,6 @@ int gssr_bin_expand(const int* rect, const float* depth, const int* tile_mask,
       rect, depth, tile_mask, offsets, fill_starts, num_rendered,
       static_cast<int>(n), static_cast<int>(instance_cap), tiles_x,
       num_tiles, depth_bits, key, payload);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the same integers from the yardstick design, one thread per gaussian and
-// per tile; num_rendered is not read
-int gssr_bin_expand_v1(const int* rect, const float* depth,
-                       const int* tile_mask, const int* offsets,
-                       const int* fill_starts, const int* num_rendered,
-                       long long n, long long instance_cap, int tiles_x,
-                       int num_tiles, int depth_bits, int* key, int* payload,
-                       void* stream) {
-  (void)num_rendered;
-  const long long blocks = (n + num_tiles + THREADS - 1) / THREADS;
-  if (instance_cap <= 0 || blocks <= 0)
-    return static_cast<int>(cudaSuccess);
-  bin_expand_v1_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      rect, depth, tile_mask, offsets, fill_starts, static_cast<int>(n),
-      static_cast<int>(instance_cap), tiles_x, num_tiles, depth_bits, key,
-      payload);
   return static_cast<int>(cudaGetLastError());
 }
 

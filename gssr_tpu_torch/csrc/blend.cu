@@ -44,33 +44,29 @@
 // (warp, instance) steps, and a walked step issues about what one of the
 // first design did: the skipped steps are the gain.
 //
-// The backward's sum over pixels: an xor butterfly per row takes 5
-// shuffles and 5 adds a row and lane, 45 shuffles, 45 adds and 9 stores by
-// lane 0 per warp and instance, ~100 of the ~230 instructions v1 issues per
-// instance where a lane contributes. blend_bwd_kernel packs three
-// consecutive instances' 9 rows into one 32-vector (entry
-// 9j + r; 27-31 zero) and sums it with one warp reduce-scatter
-// (common.cuh: 31 shuffles per three instances, ~10 per instance), after
-// which lane k holds row k % 9 of instance i0 + k / 9: 27 lanes store the
-// warp's partials with one write each. A chunk is 42 groups of three and
-// one of two. The partials of a whole chunk ([warp][instance][row], row
-// stride 9, odd, so lanes and the cross-warp pass hit 32 banks; 36 KB) are
-// summed over the 8 warps once per chunk. At <= 80 registers three blocks
-// stay resident per SM. What is left bounds it by instruction issue: the
-// per-pixel step on every walked instance (~120 instructions where the
-// pixel contributes, with an IEEE division and an accurate expf, whose
-// rounding the results depend on), and ~38 per instance (31 shuffles, 31
-// adds, 52 selects per three) for the sum where one contributes.
-// blend_bwd_v1_kernel is the first design (a butterfly per row, lane 0
-// writing the 9 partials), kept as the yardstick
-// the redesign is timed against; no main path launches it. Both take the
-// per-pixel terms from VanillaBwdPixel, so their arithmetic is the same.
+// The backward's sum over pixels: blend_bwd_kernel packs three
+// consecutive instances' 9 rows into one 32-vector (entry 9j + r; 27-31
+// zero) and sums it with one warp reduce-scatter (common.cuh: 31 shuffles
+// per three instances, ~10 per instance, where an xor butterfly per row
+// would take 5 a row and lane, 45 per instance), after which lane k holds
+// row k % 9 of instance i0 + k / 9: 27 lanes store the warp's partials
+// with one write each. A chunk is 42 groups of three and one of two. The
+// partials of a whole chunk ([warp][instance][row], row stride 9, odd, so
+// lanes and the cross-warp pass hit 32 banks; 36 KB) are summed over the
+// 8 warps once per chunk. At <= 80 registers three blocks stay resident
+// per SM. What is left bounds it by instruction issue: the per-pixel step
+// on every walked instance (~120 instructions where the pixel
+// contributes, with an IEEE division and an accurate expf, whose rounding
+// the results depend on), and ~38 per instance (31 shuffles, 31 adds, 52
+// selects per three) for the sum where one contributes. The first design
+// (a butterfly per row, lane 0 writing the 9 partials) lost to this one
+// at every input measured and is gone; PERF.md section 6 keeps its
+// figures.
 //
 // Determinism: exactly one block writes each instance's gradient slot,
 // and every sum over pixels runs in a fixed order (within a warp, adding
-// the same lane pairs in the same order as an xor butterfly, then the 8
-// warp partials in warp order): no atomics. The two backwards agree bit
-// for bit.
+// the same lane pairs in the same order every run, then the 8 warp
+// partials in warp order): no atomics.
 
 #include "common.cuh"
 
@@ -194,58 +190,6 @@ blend_bwd_kernel(const float* __restrict__ attrs, long long n_inst,
   }
 }
 
-// the first design, kept as the yardstick of blend_bwd_kernel: an xor
-// butterfly per row and lane 0 writing the warp's 9 partials
-__global__ void __launch_bounds__(PIX)
-blend_bwd_v1_kernel(const float* __restrict__ attrs, long long n_inst,
-                    const int* __restrict__ ranges, int tiles_x,
-                    const float* __restrict__ fwd_out,
-                    const float* __restrict__ cot,
-                    float* __restrict__ dattrs) {
-  __shared__ float s[LIVE][CHUNK];
-  __shared__ float part[WARPS][LIVE][CHUNK];
-  const int t = blockIdx.x, p = threadIdx.x;
-  const int warp = p / 32, lane = p % 32;
-  const int gx = (t % tiles_x) * TILE + p % TILE;
-  const int gy = (t / tiles_x) * TILE + p / TILE;
-  VanillaBwdPixel pixel(fwd_out, cot, (long long)gy * (tiles_x * TILE) + gx,
-                        (float)gx, (float)gy);
-  const long long end = ranges[t + 1];
-
-  for (long long base = ranges[t]; base < end; base += CHUNK) {
-    // chunks after the tile saturates keep their zero gradient
-    if (!__syncthreads_or(pixel.D >= T_EPS)) break;
-    load_chunk<LIVE>(s, attrs, n_inst, base);
-    __syncthreads();
-    for (int i = 0; i < CHUNK; ++i) {
-      float v[LIVE] = {};
-      const bool hit = pixel.step(s, i, v);
-      if (__any_sync(FULL, hit)) {
-#pragma unroll
-        for (int k = 0; k < LIVE; ++k) {
-          float x = v[k];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            x += __shfl_xor_sync(FULL, x, off);
-          v[k] = x;
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < LIVE; ++k) part[warp][k][i] = v[k];
-      }
-    }
-    __syncthreads();
-    for (int j = p; j < LIVE * CHUNK; j += PIX) {
-      const int r = j / CHUNK, col = j % CHUNK;
-      float acc = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) acc += part[w][r][col];
-      dattrs[r * n_inst + base + col] = acc;
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -265,16 +209,6 @@ int gssr_blend_bwd(const float* attrs, long long n_inst, const int* ranges,
                    const float* cot, float* dattrs, void* stream) {
   blend_bwd_kernel<<<tiles_x * tiles_y, PIX, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the same with the v1 kernel
-int gssr_blend_bwd_v1(const float* attrs, long long n_inst, const int* ranges,
-                      int tiles_x, int tiles_y, const float* fwd_out,
-                      const float* cot, float* dattrs, void* stream) {
-  blend_bwd_v1_kernel<<<tiles_x * tiles_y, PIX, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
       attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
   return static_cast<int>(cudaGetLastError());
 }

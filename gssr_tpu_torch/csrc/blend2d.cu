@@ -51,11 +51,10 @@
 // only where it contributes. A lane's skip saves issue slots only where all
 // 32 lanes of its warp skip, so a warp covers an 8 x 4 block of its tile,
 // which lies outside a small splat more often than a 16 x 2 strip does.
-// blend2d_fwd_v1_kernel is the first design (no cull, a 16 x 2 strip per
-// warp), kept as the yardstick; no main path launches it. Both run the
-// same SurfelFwdPixel::step, so they agree bit for bit.
+// The first design (no cull, a 16 x 2 strip per warp) lost to this one at
+// every input measured and is gone; PERF.md section 6 keeps its figures.
 //
-// The backward's sum over pixels: an xor butterfly per row takes 5
+// The backward's sum over pixels: an xor butterfly per row would take 5
 // shuffles and 5 adds a row and lane, 105 shuffles per warp and instance,
 // and an SM retires one warp shuffle per clock. blend2d_bwd_kernel pads the
 // 21 terms to 32 and sums them with one warp reduce-scatter (common.cuh:
@@ -63,13 +62,14 @@
 // after which lane k holds row k: 21 lanes store the warp's partials with
 // one coalesced shared-memory write. The partials of a whole chunk
 // ([warp][instance][row], 84 KB of dynamic shared memory) are summed over
-// the 8 warps once per chunk, so a chunk costs three barriers, not ten; at
+// the 8 warps once per chunk, so a chunk costs three barriers (summing
+// every 32 instances would cost ten); at
 // <= 128 registers two blocks stay resident per SM. What is left bounds it
 // by instruction dispatch: the surfel evaluation on every walked instance and
-// the gradient terms where it contributes. blend2d_bwd_v1_kernel is the first
-// design (a butterfly per row, lane 0 writing the partials, the warps
-// summed every 32 instances), kept as the yardstick the redesign is timed
-// against; no main path launches it.
+// the gradient terms where it contributes. The first design (a butterfly
+// per row, lane 0 writing the partials, the warps summed every 32
+// instances) lost to this one at every input measured and is gone; PERF.md
+// section 6 keeps its figures.
 //
 // Agreement with the plain version: every operation on the path to an
 // alpha, depth, D or median decision is rounded once (the _rn intrinsics
@@ -88,7 +88,6 @@ using namespace gssr;
 
 constexpr int LIVE2 = 21;
 constexpr int OUT2 = 16;
-constexpr int GROUP_V1 = 32;      // instances per v1 backward reduction
 constexpr float NEAR_N = 0.2f;
 constexpr float M_COEF = static_cast<float>(100.0 / (100.0 - 0.2));
 // the forward's cull (see the note above)
@@ -344,32 +343,6 @@ blend2d_fwd_kernel(const float* __restrict__ attrs, long long n_inst,
   pixel.store(out, (long long)gy * (tiles_x * TILE) + gx);
 }
 
-// the first design, kept as the yardstick of blend2d_fwd_kernel: every
-// walked pair evaluated in full, a warp per 16 x 2 strip of the tile
-__global__ void __launch_bounds__(PIX)
-blend2d_fwd_v1_kernel(const float* __restrict__ attrs, long long n_inst,
-                      const int* __restrict__ ranges, int tiles_x,
-                      float* __restrict__ out) {
-  __shared__ float s[LIVE2][CHUNK];
-  const int t = blockIdx.x, p = threadIdx.x;
-  const int gx = (t % tiles_x) * TILE + p % TILE;
-  const int gy = (t / tiles_x) * TILE + p / TILE;
-  SurfelFwdPixel pixel((float)gx, (float)gy);
-  const long long start = ranges[t], end = ranges[t + 1];
-
-  for (long long base = start; base < end; base += CHUNK) {
-    // also the barrier before the staging buffer is overwritten
-    if (!__syncthreads_or(pixel.D >= T_EPS)) break;
-    load_chunk<LIVE2>(s, attrs, n_inst, base);
-    __syncthreads();
-    const float k0 = (float)(base - start);
-    for (int i = 0; i < CHUNK && pixel.D >= T_EPS; ++i)
-      pixel.step(s, i, k0,
-                 surfel_ray(ray_attrs(s, i), pixel.px, pixel.py));
-  }
-  pixel.store(out, (long long)gy * (tiles_x * TILE) + gx);
-}
-
 // One pixel's side of the surfel backward: its cotangents, the totals a
 // first pass would rebuild, and the running D and prefix of its walk.
 struct SurfelBwdPixel {
@@ -498,64 +471,6 @@ blend2d_bwd_kernel(const float* __restrict__ attrs, long long n_inst,
   }
 }
 
-// the first design, kept as the yardstick of blend2d_bwd_kernel: an xor
-// butterfly per row, lane 0 writing the warp's 21 partials, the warps
-// summed every 32 instances in 21.5 KB of static shared memory
-__global__ void __launch_bounds__(PIX)
-blend2d_bwd_v1_kernel(const float* __restrict__ attrs, long long n_inst,
-                      const int* __restrict__ ranges, int tiles_x,
-                      const float* __restrict__ fwd_out,
-                      const float* __restrict__ cot,
-                      float* __restrict__ dattrs) {
-  __shared__ float s[LIVE2][CHUNK];
-  __shared__ float part[WARPS][LIVE2][GROUP_V1];
-  const int t = blockIdx.x, p = threadIdx.x;
-  const int warp = p / 32, lane = p % 32;
-  const int gx = (t % tiles_x) * TILE + p % TILE;
-  const int gy = (t / tiles_x) * TILE + p / TILE;
-  SurfelBwdPixel pixel(fwd_out, cot, (long long)gy * (tiles_x * TILE) + gx,
-                     (float)gx, (float)gy);
-  const long long start = ranges[t], end = ranges[t + 1];
-
-  for (long long base = start; base < end; base += CHUNK) {
-    // chunks after the tile saturates keep their zero gradient
-    if (!__syncthreads_or(pixel.D >= T_EPS)) break;
-    load_chunk<LIVE2>(s, attrs, n_inst, base);
-    __syncthreads();
-    const float k0 = (float)(base - start);
-    for (int g0 = 0; g0 < CHUNK; g0 += GROUP_V1) {
-      for (int j = 0; j < GROUP_V1; ++j) {
-        float v[LIVE2] = {};
-        const bool hit = pixel.step(s, g0 + j, k0, v);
-        if (__any_sync(FULL, hit)) {
-#pragma unroll
-          for (int k = 0; k < LIVE2; ++k) {
-            float x = v[k];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              x += __shfl_xor_sync(FULL, x, off);
-            v[k] = x;
-          }
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int k = 0; k < LIVE2; ++k) part[warp][k][j] = v[k];
-        }
-      }
-      __syncthreads();
-      for (int q = p; q < LIVE2 * GROUP_V1; q += PIX) {
-        const int r = q / GROUP_V1, col = q % GROUP_V1;
-        float acc = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) acc += part[w][r][col];
-        dattrs[r * n_inst + base + g0 + col] = acc;
-      }
-      // the partials are read before the next group overwrites them
-      __syncthreads();
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -565,16 +480,6 @@ int gssr_blend2d_fwd(const float* attrs, long long n_inst, const int* ranges,
                      int tiles_x, int tiles_y, float* out, void* stream) {
   blend2d_fwd_kernel<<<tiles_x * tiles_y, PIX, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      attrs, n_inst, ranges, tiles_x, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the same with the v1 kernel
-int gssr_blend2d_fwd_v1(const float* attrs, long long n_inst,
-                        const int* ranges, int tiles_x, int tiles_y,
-                        float* out, void* stream) {
-  blend2d_fwd_v1_kernel<<<tiles_x * tiles_y, PIX, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
       attrs, n_inst, ranges, tiles_x, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -594,17 +499,6 @@ int gssr_blend2d_bwd(const float* attrs, long long n_inst, const int* ranges,
   if (e != cudaSuccess) return static_cast<int>(e);
   blend2d_bwd_kernel<<<tiles_x * tiles_y, PIX, BWD2_SMEM,
                        static_cast<cudaStream_t>(stream)>>>(
-      attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the same with the v1 kernel
-int gssr_blend2d_bwd_v1(const float* attrs, long long n_inst,
-                        const int* ranges, int tiles_x, int tiles_y,
-                        const float* fwd_out, const float* cot, float* dattrs,
-                        void* stream) {
-  blend2d_bwd_v1_kernel<<<tiles_x * tiles_y, PIX, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
       attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,7 +44,7 @@
 // the instances some pixel of its 8 x 4 block may see, bit for bit equal
 // to the walk over every instance.
 //
-// The backward's sum over pixels: an xor butterfly per row takes 5
+// The backward's sum over pixels: an xor butterfly per row would take 5
 // shuffles and 5 adds a row and lane, 75 shuffles per warp and instance for
 // 15 rows, and an SM retires one warp shuffle per clock.
 // blend_pgsr_bwd_kernel puts two consecutive instances' 16 rows into one
@@ -53,13 +53,13 @@
 // and all 32 lanes store the warp's partials with one shared-memory write.
 // The partials of a whole chunk ([warp][row][instance], 65 KB of dynamic
 // shared memory) are summed over the 8 warps once per chunk, so a chunk
-// costs three barriers, not ten; at <= 80 registers three blocks stay
-// resident per SM. What is left bounds it by instruction dispatch: the
-// gaussian on every walked instance, the gradient terms where it
-// contributes and the reduce-scatter's selects. blend_pgsr_bwd_v1_kernel is
-// the first design (a butterfly per row, lane 0 writing the partials, the
-// warps summed every 32 instances), kept as the yardstick the redesign is
-// timed against; no main path launches it.
+// costs three barriers (summing every 32 instances would cost ten); at <=
+// 80 registers three blocks stay resident per SM. What is left bounds it
+// by instruction dispatch: the gaussian on every walked instance, the
+// gradient terms where it contributes and the reduce-scatter's selects.
+// The first design (a butterfly per row, lane 0 writing the partials, the
+// warps summed every 32 instances) lost to this one at every input
+// measured and is gone; PERF.md section 6 keeps its figures.
 //
 // Determinism: exactly one block writes each instance's slot, and every
 // sum over pixels runs in a fixed order (within a warp, then the 8 warp
@@ -74,7 +74,6 @@ using namespace gssr;
 constexpr int LIVEP = 13;         // rows read: geometry + 7 channels
 constexpr int NCH = 7;            // rgb, normal, distance
 constexpr int ROWSP = 16;         // rows the backward writes
-constexpr int GROUP_V1 = 32;      // instances per v1 backward reduction
 enum { P_CH = GEOM_ROWS, P_OBS = 13, P_ABSX = 14, P_ABSY = 15 };
 // dynamic shared memory of blend_pgsr_bwd_kernel: the staged chunk and the
 // warp partials of all its instances, [warp][row][instance] with a row
@@ -290,68 +289,6 @@ blend_pgsr_bwd_kernel(const float* __restrict__ attrs, long long n_inst,
   }
 }
 
-// the first design, kept as the yardstick of blend_pgsr_bwd_kernel: an xor
-// butterfly per row, lane 0 writing the warp's 16 partials, the warps
-// summed every 32 instances in 16 KB of static shared memory
-__global__ void __launch_bounds__(PIX)
-blend_pgsr_bwd_v1_kernel(const float* __restrict__ attrs, long long n_inst,
-                         const int* __restrict__ ranges, int tiles_x,
-                         const float* __restrict__ fwd_out,
-                         const float* __restrict__ cot,
-                         float* __restrict__ dattrs) {
-  __shared__ float s[LIVEP][CHUNK];
-  __shared__ float part[WARPS][ROWSP][GROUP_V1];
-  const int t = blockIdx.x, p = threadIdx.x;
-  const int warp = p / 32, lane = p % 32;
-  const int gx = (t % tiles_x) * TILE + p % TILE;
-  const int gy = (t / tiles_x) * TILE + p / TILE;
-  PlanarBwdPixel pixel(fwd_out, cot, (long long)gy * (tiles_x * TILE) + gx,
-                       (float)gx, (float)gy);
-  const long long end = ranges[t + 1];
-
-  for (long long base = ranges[t]; base < end; base += CHUNK) {
-    // chunks after the tile saturates keep their zero gradient
-    if (!__syncthreads_or(pixel.D >= T_EPS)) break;
-    load_chunk<LIVEP>(s, attrs, n_inst, base);
-    __syncthreads();
-    for (int g0 = 0; g0 < CHUNK; g0 += GROUP_V1) {
-      for (int j = 0; j < GROUP_V1; ++j) {
-        float v[ROWSP] = {};
-        bool seen = false;
-        const bool hit = pixel.step(s, g0 + j, v, seen);
-        // the observe count takes no cotangent: a ballot, not a sum
-        const unsigned bits = __ballot_sync(FULL, seen);
-        if (__any_sync(FULL, hit)) {
-#pragma unroll
-          for (int k = 0; k < ROWSP; ++k) {
-            if (k == P_OBS) continue;
-            float x = v[k];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              x += __shfl_xor_sync(FULL, x, off);
-            v[k] = x;
-          }
-        }
-        if (lane == 0) {
-          v[P_OBS] = (float)__popc(bits);
-#pragma unroll
-          for (int k = 0; k < ROWSP; ++k) part[warp][k][j] = v[k];
-        }
-      }
-      __syncthreads();
-      for (int q = p; q < ROWSP * GROUP_V1; q += PIX) {
-        const int r = q / GROUP_V1, col = q % GROUP_V1;
-        float acc = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) acc += part[w][r][col];
-        dattrs[r * n_inst + base + g0 + col] = acc;
-      }
-      // the partials are read before the next group overwrites them
-      __syncthreads();
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -385,17 +322,6 @@ int gssr_blend_pgsr_bwd(const float* attrs, long long n_inst,
   if (e != cudaSuccess) return static_cast<int>(e);
   blend_pgsr_bwd_kernel<<<tiles_x * tiles_y, PIX, BWDP_SMEM,
                           static_cast<cudaStream_t>(stream)>>>(
-      attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the same with the v1 kernel
-int gssr_blend_pgsr_bwd_v1(const float* attrs, long long n_inst,
-                           const int* ranges, int tiles_x, int tiles_y,
-                           const float* fwd_out, const float* cot,
-                           float* dattrs, void* stream) {
-  blend_pgsr_bwd_v1_kernel<<<tiles_x * tiles_y, PIX, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
       attrs, n_inst, ranges, tiles_x, fwd_out, cot, dattrs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,9 @@ the nvcc runs for all sources start together. The libraries are loaded
 through ctypes. A hash covers the source, the shared header and the flags,
 so an edited source is rebuilt. Importing this module touches neither CUDA
 nor nvcc: CPU-only test runs import every module. `build` also takes
-another checkout's csrc/ (chip_smoke.py --yardstick builds its parent
-commit's kernels beside these), and skips the sources that one lacks.
+another checkout's csrc/, and skips the sources that one lacks, and `bind`
+binds what it built (chip_smoke.py --yardstick holds these kernels against
+the parent commit's so).
 """
 from __future__ import annotations
 
@@ -32,23 +33,19 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _FWD = (_P, _I64, _P, _I32, _I32, _P)
 _BWD = (_P, _I64, _P, _I32, _I32, _P, _P, _P)
 _EXPAND = (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P)
-# source -> its C entry points: (argtypes without the trailing stream). The
-# *_v1 kernels are the first or the other designs, kept as the yardstick;
+# source -> its C entry points: (argtypes without the trailing stream);
 # *_occupancy report a kernel's registers, shared memory and blocks per SM.
 SOURCES = {
     "blend.cu": {
         "gssr_blend_fwd": _FWD,
         "gssr_blend_fwd_occupancy": (_P,),
         "gssr_blend_bwd": _BWD,
-        "gssr_blend_bwd_v1": _BWD,
         "gssr_blend_bwd_occupancy": (_P,),
     },
     "blend2d.cu": {
         "gssr_blend2d_fwd": _FWD,
-        "gssr_blend2d_fwd_v1": _FWD,
         "gssr_blend2d_fwd_occupancy": (_P,),
         "gssr_blend2d_bwd": _BWD,
-        "gssr_blend2d_bwd_v1": _BWD,
         "gssr_blend2d_bwd_occupancy": (_P,),
     },
     "blend_pgsr.cu": {
@@ -57,12 +54,10 @@ SOURCES = {
         "gssr_blend_pgsr_obs": _FWD,
         "gssr_blend_pgsr_obs_occupancy": (_P,),
         "gssr_blend_pgsr_bwd": _BWD,
-        "gssr_blend_pgsr_bwd_v1": _BWD,
         "gssr_blend_pgsr_bwd_occupancy": (_P,),
     },
     "binning.cu": {
         "gssr_bin_expand": _EXPAND,
-        "gssr_bin_expand_v1": _EXPAND,
     },
     "projection.cu": {
         "gssr_tile_mask": (_P, _P, _P, _P, _P, _I64, _P, _P),
@@ -125,23 +120,33 @@ def build(src_dir: Path = _SRC_DIR, build_dir: Path = BUILD_DIR) -> dict:
     return {"seconds": time.perf_counter() - t0, "libs": libs}
 
 
+def bind(libs: dict) -> dict:
+    """Entry point name -> (C function, its library's error string), for
+    the entry points of SOURCES that the built libraries `libs`
+    (build()["libs"]) define."""
+    fns = {}
+    for src, entries in SOURCES.items():
+        if src not in libs:
+            continue
+        lib = ctypes.CDLL(str(libs[src]["path"]))
+        lib.gssr_error_string.argtypes = [ctypes.c_int]
+        lib.gssr_error_string.restype = ctypes.c_char_p
+        for name, args in entries.items():
+            if not hasattr(lib, name):
+                continue
+            fn = getattr(lib, name)
+            fn.argtypes = [*args, _P]
+            fn.restype = ctypes.c_int
+            fns[name] = (fn, lib.gssr_error_string)
+    return fns
+
+
 def load() -> dict:
     """Entry point name -> bound C function, the libraries built on first
     use."""
     global _fns
     if _fns is None:
-        libs = build()["libs"]
-        fns = {}
-        for src, entries in SOURCES.items():
-            lib = ctypes.CDLL(str(libs[src]["path"]))
-            lib.gssr_error_string.argtypes = [ctypes.c_int]
-            lib.gssr_error_string.restype = ctypes.c_char_p
-            for name, args in entries.items():
-                fn = getattr(lib, name)
-                fn.argtypes = [*args, _P]
-                fn.restype = ctypes.c_int
-                fns[name] = (fn, lib.gssr_error_string)
-        _fns = fns
+        _fns = bind(build()["libs"])
     return _fns
 
 

@@ -23,8 +23,7 @@ So it can never overflow and `overflow` is always false.
 
 Each slot's sort key and payload (`expand_instances`) come, for CUDA
 tensors, from the kernel of csrc/binning.cu; `expand_instances_plain`,
-its plain version, is taken for CPU tensors only. `expand_instances_v1`
-launches the other design, kept as its yardstick.
+its plain version, is taken for CPU tensors only.
 
 All index math here is non-differentiable; callers pass detached inputs.
 """
@@ -39,7 +38,7 @@ from gssr_tpu_torch.ops import _kernels
 from gssr_tpu_torch.utils.tracing import span
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"bin_expand": 0, "bin_expand_v1": 0}
+LAUNCHES = {"bin_expand": 0}
 
 
 class Binning(NamedTuple):
@@ -68,8 +67,12 @@ def tile_cover_counts(rect, visible, tiles_x: int, tiles_y: int):
     return (U.T @ V).reshape(-1).to(torch.int32)
 
 
-def _expand(kernel: str, rect, depth, tile_mask, offsets, fill_starts,
-            num_rendered, instance_cap: int, tiles_x: int, depth_bits: int):
+def expand_instances(rect, depth, tile_mask, offsets, fill_starts,
+                     num_rendered, instance_cap: int, tiles_x: int,
+                     depth_bits: int):
+    """expand_instances_plain's (key, payload), from csrc/binning.cu's
+    kernel for CUDA tensors, bit for bit the same: one launch, no host
+    sync."""
     if depth.device.type != "cuda":
         return expand_instances_plain(rect, depth, tile_mask, offsets,
                                       fill_starts, num_rendered,
@@ -97,7 +100,7 @@ def _expand(kernel: str, rect, depth, tile_mask, offsets, fill_starts,
                      num_rendered)]
     key = torch.empty(instance_cap, dtype=torch.int32, device=dev)
     payload = torch.empty_like(key)
-    _kernels.launch(f"gssr_{kernel}", dev,
+    _kernels.launch("gssr_bin_expand", dev,
                     *(ctypes.c_void_p(None if t is None else t.data_ptr())
                       for t in ins),
                     ctypes.c_int64(n), ctypes.c_int64(instance_cap),
@@ -105,29 +108,8 @@ def _expand(kernel: str, rect, depth, tile_mask, offsets, fill_starts,
                     ctypes.c_int(depth_bits),
                     ctypes.c_void_p(key.data_ptr()),
                     ctypes.c_void_p(payload.data_ptr()))
-    LAUNCHES[kernel] += 1
+    LAUNCHES["bin_expand"] += 1
     return key, payload
-
-
-def expand_instances(rect, depth, tile_mask, offsets, fill_starts,
-                     num_rendered, instance_cap: int, tiles_x: int,
-                     depth_bits: int):
-    """expand_instances_plain's (key, payload), from csrc/binning.cu's
-    kernel for CUDA tensors, bit for bit the same: one launch, no host
-    sync."""
-    return _expand("bin_expand", rect, depth, tile_mask, offsets,
-                   fill_starts, num_rendered, instance_cap, tiles_x,
-                   depth_bits)
-
-
-def expand_instances_v1(rect, depth, tile_mask, offsets, fill_starts,
-                        num_rendered, instance_cap: int, tiles_x: int,
-                        depth_bits: int):
-    """The same through the other design's kernel, a thread per gaussian,
-    the yardstick of the current one; no render calls it."""
-    return _expand("bin_expand_v1", rect, depth, tile_mask, offsets,
-                   fill_starts, num_rendered, instance_cap, tiles_x,
-                   depth_bits)
 
 
 def expand_instances_plain(rect, depth, tile_mask, offsets, fill_starts,

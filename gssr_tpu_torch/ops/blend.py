@@ -4,13 +4,13 @@ gssr_tpu/ops/blend_pallas.py).
 The two TPU kernels `_fwd_kernel` and `_bwd_kernel` become the CUDA
 kernels of csrc/blend.cu; beside each is its plain PyTorch version
 (`blend_fwd_plain`, `blend_bwd_plain`), which the wrappers take for CPU
-tensors only. On a CUDA tensor a wrapper launches its kernel or raises.
-`blend_bwd_v1` launches the backward's first design, kept as the yardstick
-of the current one; no render calls it. `warp_cull_plain` is the plain
-version of the forward kernel's alpha cull (csrc/common.cuh), the test
-that leaves an instance out of a warp's walk, and `alpha_cull_plain` the
-per-pair proof it rests on, which no kernel runs; both read rows 0-5,
-which the planar (PGSR) layout shares.
+tensors only. On a CUDA tensor a wrapper launches its kernel, through the
+launch layer that the blend families share (ops/blend_launch.py), or
+raises. `warp_cull_plain` is the plain version of the forward kernel's
+alpha cull (csrc/common.cuh), the test that leaves an instance out of a
+warp's walk, and `alpha_cull_plain` the per-pair proof it rests on, which
+no kernel runs; both read rows 0-5, which the planar (PGSR) layout
+shares.
 
 Layouts:
 * instance attributes [NUM_ATTRS, I], attribute-major, 9 live rows
@@ -34,12 +34,10 @@ run: no atomics anywhere on the path.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from gssr_tpu_torch.ops import _kernels
 from gssr_tpu_torch.ops.binning import Binning
+from gssr_tpu_torch.ops.blend_launch import CHUNK, TileBlend, TileKernels
 from gssr_tpu_torch.ops.projection import TILE
 from gssr_tpu_torch.utils.tracing import span
 
@@ -52,7 +50,6 @@ NUM_ATTRS = 16
 
 OUT_ROWS = 4          # 0-2 accumulated colour, 3 final_T
 PIX = TILE * TILE     # 256 pixels per tile
-CHUNK = 128           # instances per chunk; binning pads ranges to this
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -67,7 +64,7 @@ BLOCK_W, BLOCK_H = 8, 4
 WARPS = PIX // 32
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0, "blend_bwd_v1": 0}
+LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -299,86 +296,28 @@ def blend_pair_count(attrs, ranges, tiles_x: int, tiles_y: int):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_inputs(attrs, ranges, tiles_x: int, tiles_y: int, *maps):
-    if attrs.dtype != torch.float32 or attrs.dim() != 2 \
-            or attrs.shape[0] != NUM_ATTRS or attrs.shape[1] % CHUNK:
-        raise ValueError(f"attrs must be float32 [{NUM_ATTRS}, I] with I a "
-                         f"multiple of {CHUNK}, got {attrs.dtype} "
-                         f"{tuple(attrs.shape)}")
-    if ranges.dtype != torch.int32 \
-            or ranges.shape != (tiles_x * tiles_y + 1,):
-        raise ValueError("ranges must be int32 [tiles + 1]")
-    shape = (tiles_y * TILE, tiles_x * TILE, OUT_ROWS)
-    for m in maps:
-        if m.dtype != torch.float32 or tuple(m.shape) != shape:
-            raise ValueError(f"blend maps must be float32 {shape}")
-    for x in (attrs, ranges) + maps:
-        if x.device != attrs.device or not x.is_contiguous():
-            raise ValueError("blend inputs must be contiguous, one device")
-
-
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
+_TILES = TileKernels("blend", NUM_ATTRS, OUT_ROWS, "blend maps", LAUNCHES)
 
 
 def blend_fwd(attrs, ranges, tiles_x: int, tiles_y: int):
     """Forward tile blend -> [H, W, 4] (colour, final_T)."""
-    if attrs.device.type == "cpu":
-        return blend_fwd_plain(attrs, ranges, tiles_x, tiles_y)
-    _check_inputs(attrs, ranges, tiles_x, tiles_y)
-    out = torch.empty((tiles_y * TILE, tiles_x * TILE, OUT_ROWS),
-                      dtype=torch.float32, device=attrs.device)
-    _kernels.launch("gssr_blend_fwd", attrs.device, _ptr(attrs),
-                    ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
-                    ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(out))
-    LAUNCHES["blend_fwd"] += 1
-    return out
-
-
-def _bwd(kernel: str, attrs, ranges, fwd_out, cot, tiles_x: int,
-         tiles_y: int):
-    if attrs.device.type == "cpu":
-        return blend_bwd_plain(attrs, ranges, fwd_out, cot, tiles_x, tiles_y)
-    _check_inputs(attrs, ranges, tiles_x, tiles_y, fwd_out, cot)
-    # chunks past a tile's saturation and rows 9-15 stay zero
-    dattrs = torch.zeros_like(attrs)
-    _kernels.launch(f"gssr_{kernel}", attrs.device, _ptr(attrs),
-                    ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
-                    ctypes.c_int(tiles_x), ctypes.c_int(tiles_y),
-                    _ptr(fwd_out), _ptr(cot), _ptr(dattrs))
-    LAUNCHES[kernel] += 1
-    return dattrs
+    return _TILES.forward(blend_fwd_plain, attrs, ranges, tiles_x, tiles_y)
 
 
 def blend_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
     """Backward tile blend -> d(attrs) [NUM_ATTRS, I]."""
-    return _bwd("blend_bwd", attrs, ranges, fwd_out, cot, tiles_x, tiles_y)
+    return _TILES.backward(blend_bwd_plain, attrs, ranges, fwd_out, cot,
+                           tiles_x, tiles_y)
 
 
-def blend_bwd_v1(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
-    """The same through the first backward kernel, the yardstick of the
-    current one; no render calls it."""
-    return _bwd("blend_bwd_v1", attrs, ranges, fwd_out, cot, tiles_x,
-                tiles_y)
+def _split(out):
+    """The forward's maps as the render's two outputs: colour, final_T."""
+    return out[..., :3].contiguous(), out[..., 3].contiguous()
 
 
-class _BlendCore(torch.autograd.Function):
-    """Forward kernel in forward, backward kernel in backward."""
-
-    @staticmethod
-    def forward(ctx, attrs, ranges, tiles_x: int, tiles_y: int):
-        out = blend_fwd(attrs, ranges, tiles_x, tiles_y)
-        ctx.save_for_backward(attrs, ranges, out)
-        ctx.tiles = (tiles_x, tiles_y)
-        return out[..., :3].contiguous(), out[..., 3].contiguous()
-
-    @staticmethod
-    def backward(ctx, d_img, d_T):
-        with span("render.blend_backward"):
-            attrs, ranges, out = ctx.saved_tensors
-            cot = torch.cat([d_img, d_T[..., None]], dim=-1).contiguous()
-            d_attrs = blend_bwd(attrs, ranges, out, cot, *ctx.tiles)
-        return d_attrs, None, None, None
+def _cotangent(d_img, d_T):
+    """The backward kernel's cotangent [H, W, 4] from the two outputs'."""
+    return torch.cat([d_img, d_T[..., None]], dim=-1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +385,7 @@ def blend(mean2d, conic, color, opacity, binning: Binning, width: int,
     assert width % TILE == 0 and height % TILE == 0
     tiles_x, tiles_y = width // TILE, height // TILE
     attrs = pack_instance_attrs(mean2d, conic, color, opacity, binning)
-    acc, final_T = _BlendCore.apply(attrs, binning.tile_ranges, tiles_x,
-                                    tiles_y)
+    acc, final_T = TileBlend.apply(blend_fwd, blend_bwd, _split, _cotangent,
+                                   attrs, binning.tile_ranges, tiles_x,
+                                   tiles_y)
     return acc + final_T[..., None] * bg, final_T

@@ -4,10 +4,9 @@ gssr_tpu/ops/blend2d_pallas.py).
 The TPU kernels `_fwd2_kernel` and `_bwd2_kernel` become the CUDA kernels
 of csrc/blend2d.cu; beside each is its plain PyTorch version
 (`blend2d_fwd_plain`, `blend2d_bwd_plain`), which the wrappers take for
-CPU tensors only. On a CUDA tensor a wrapper launches its kernel or
-raises. `blend2d_fwd_v1` and `blend2d_bwd_v1` launch the first designs,
-kept as the yardsticks of the current ones; no render calls them.
-`surfel_cull_plain` is the plain version of the forward kernel's cull,
+CPU tensors only. On a CUDA tensor a wrapper launches its kernel, through
+the launch layer that the blend families share (ops/blend_launch.py), or
+raises. `surfel_cull_plain` is the plain version of the forward kernel's cull,
 the test that skips a pair whose alpha is provably 0 before its divisions
 and exp.
 
@@ -36,12 +35,10 @@ totals S1 = M1, S2 = M2 that the forward writes to rows 14-15.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from gssr_tpu_torch.ops import _kernels
 from gssr_tpu_torch.ops.binning import Binning
 from gssr_tpu_torch.ops.blend import (
     ALPHA_MAX,
@@ -52,10 +49,10 @@ from gssr_tpu_torch.ops.blend import (
     _chunks,
     _image_to_tiles,
     _pixel_coords,
-    _ptr,
     _tiles_to_image,
     _walk,
 )
+from gssr_tpu_torch.ops.blend_launch import TileBlend, TileKernels
 from gssr_tpu_torch.ops.projection import TILE
 from gssr_tpu_torch.utils.tracing import span
 
@@ -97,8 +94,7 @@ CULL_FLOOR = 2.0 ** -100
 PLAIN_TILE_BATCH = 1024
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"blend2d_fwd": 0, "blend2d_fwd_v1": 0, "blend2d_bwd": 0,
-            "blend2d_bwd_v1": 0}
+LAUNCHES = {"blend2d_fwd": 0, "blend2d_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -343,76 +339,19 @@ def blend2d_pair_count(attrs, ranges, tiles_x: int, tiles_y: int):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_inputs(attrs, ranges, tiles_x: int, tiles_y: int, *maps):
-    if attrs.dtype != torch.float32 or attrs.dim() != 2 \
-            or attrs.shape[0] != NUM_ATTRS2 or attrs.shape[1] % CHUNK:
-        raise ValueError(f"attrs must be float32 [{NUM_ATTRS2}, I] with I a "
-                         f"multiple of {CHUNK}, got {attrs.dtype} "
-                         f"{tuple(attrs.shape)}")
-    if ranges.dtype != torch.int32 \
-            or ranges.shape != (tiles_x * tiles_y + 1,):
-        raise ValueError("ranges must be int32 [tiles + 1]")
-    shape = (tiles_y * TILE, tiles_x * TILE, OUT2_ROWS)
-    for m in maps:
-        if m.dtype != torch.float32 or tuple(m.shape) != shape:
-            raise ValueError(f"surfel blend maps must be float32 {shape}")
-    for x in (attrs, ranges) + maps:
-        if x.device != attrs.device or not x.is_contiguous():
-            raise ValueError("blend inputs must be contiguous, one device")
-
-
-def _fwd(kernel: str, attrs, ranges, tiles_x: int, tiles_y: int):
-    if attrs.device.type == "cpu":
-        return blend2d_fwd_plain(attrs, ranges, tiles_x, tiles_y)
-    _check_inputs(attrs, ranges, tiles_x, tiles_y)
-    out = torch.empty((tiles_y * TILE, tiles_x * TILE, OUT2_ROWS),
-                      dtype=torch.float32, device=attrs.device)
-    _kernels.launch(f"gssr_{kernel}", attrs.device, _ptr(attrs),
-                    ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
-                    ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(out))
-    LAUNCHES[kernel] += 1
-    return out
+_TILES = TileKernels("blend2d", NUM_ATTRS2, OUT2_ROWS, "surfel blend maps",
+                     LAUNCHES)
 
 
 def blend2d_fwd(attrs, ranges, tiles_x: int, tiles_y: int):
     """Forward surfel blend -> [H, W, OUT2_ROWS]."""
-    return _fwd("blend2d_fwd", attrs, ranges, tiles_x, tiles_y)
-
-
-def blend2d_fwd_v1(attrs, ranges, tiles_x: int, tiles_y: int):
-    """The same through the first forward kernel, the yardstick of the
-    current one; no render calls it."""
-    return _fwd("blend2d_fwd_v1", attrs, ranges, tiles_x, tiles_y)
-
-
-def _bwd(kernel: str, attrs, ranges, fwd_out, cot, tiles_x: int,
-         tiles_y: int):
-    if attrs.device.type == "cpu":
-        return blend2d_bwd_plain(attrs, ranges, fwd_out, cot, tiles_x,
-                                 tiles_y)
-    _check_inputs(attrs, ranges, tiles_x, tiles_y, fwd_out, cot)
-    # chunks past a tile's saturation and rows 21-23 stay zero
-    dattrs = torch.zeros_like(attrs)
-    _kernels.launch(f"gssr_{kernel}", attrs.device, _ptr(attrs),
-                    ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
-                    ctypes.c_int(tiles_x), ctypes.c_int(tiles_y),
-                    _ptr(fwd_out), _ptr(cot), _ptr(dattrs))
-    LAUNCHES[kernel] += 1
-    return dattrs
+    return _TILES.forward(blend2d_fwd_plain, attrs, ranges, tiles_x, tiles_y)
 
 
 def blend2d_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
     """Backward surfel blend -> d(attrs) [NUM_ATTRS2, I]."""
-    return _bwd("blend2d_bwd", attrs, ranges, fwd_out, cot, tiles_x,
-                tiles_y)
-
-
-def blend2d_bwd_v1(attrs, ranges, fwd_out, cot, tiles_x: int,
-                   tiles_y: int):
-    """The same through the first backward kernel, the yardstick of the
-    current one; no render calls it."""
-    return _bwd("blend2d_bwd_v1", attrs, ranges, fwd_out, cot, tiles_x,
-                tiles_y)
+    return _TILES.backward(blend2d_bwd_plain, attrs, ranges, fwd_out, cot,
+                           tiles_x, tiles_y)
 
 
 # output rows that carry no gradient: the median's position is an index,
@@ -421,29 +360,15 @@ def blend2d_bwd_v1(attrs, ranges, fwd_out, cot, tiles_x: int,
 NO_GRAD_ROWS = (O_SELPOS, O_S1, O_S2)
 
 
-class _Blend2Core(torch.autograd.Function):
-    """Forward kernel in forward, backward kernel in backward."""
-
-    @staticmethod
-    def forward(ctx, attrs, ranges, tiles_x: int, tiles_y: int):
-        out = blend2d_fwd(attrs, ranges, tiles_x, tiles_y)
-        ctx.save_for_backward(attrs, ranges, out)
-        ctx.tiles = (tiles_x, tiles_y)
-        return out
-
-    @staticmethod
-    def backward(ctx, g_rows):
-        with span("render.blend_backward"):
-            attrs, ranges, out = ctx.saved_tensors
-            cot = g_rows.clone()
-            # the rows' upload and the zero's, each its own host sync
-            with span("sync.blend_rows"):
-                rows = torch.as_tensor(NO_GRAD_ROWS).to(cot.device)
-            with span("sync.blend_rows"):
-                cot[..., rows] = 0.0
-            d_attrs = blend2d_bwd(attrs, ranges, out, cot.contiguous(),
-                                  *ctx.tiles)
-        return d_attrs, None, None, None
+def _cotangent(g_rows):
+    """The backward kernel's cotangent: the maps' with NO_GRAD_ROWS zero."""
+    cot = g_rows.clone()
+    # the rows' upload and the zero's, each its own host sync
+    with span("sync.blend_rows"):
+        rows = torch.as_tensor(NO_GRAD_ROWS).to(cot.device)
+    with span("sync.blend_rows"):
+        cot[..., rows] = 0.0
+    return cot.contiguous()
 
 
 def pack_instance_attrs_2d(mean2d, Tmat, normal, color, opacity,
@@ -487,5 +412,6 @@ def blend2d(mean2d, Tmat, normal, color, opacity, binning: Binning,
     tiles_x, tiles_y = width // TILE, height // TILE
     attrs = pack_instance_attrs_2d(mean2d, Tmat, normal, color, opacity,
                                    binning)
-    return SurfelMaps(_Blend2Core.apply(attrs, binning.tile_ranges, tiles_x,
-                                        tiles_y))
+    return SurfelMaps(TileBlend.apply(blend2d_fwd, blend2d_bwd, None,
+                                      _cotangent, attrs, binning.tile_ranges,
+                                      tiles_x, tiles_y))

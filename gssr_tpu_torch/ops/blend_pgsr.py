@@ -5,9 +5,8 @@ The TPU kernels `_fwdp_kernel`, `_obsp_kernel` and `_bwdp_kernel` become
 the CUDA kernels of csrc/blend_pgsr.cu; beside each is its plain PyTorch
 version (`blend_pgsr_fwd_plain`, `blend_pgsr_obs_plain`,
 `blend_pgsr_bwd_plain`), which the wrappers take for CPU tensors only. On a
-CUDA tensor a wrapper launches its kernel or raises. `blend_pgsr_bwd_v1`
-launches the backward's first design, kept as the yardstick of the current
-one; no render calls it.
+CUDA tensor a wrapper launches its kernel, through the launch layer that
+the blend families share (ops/blend_launch.py), or raises.
 
 Layouts:
 * instance attributes [NUM_ATTRS_P, I], attribute-major: rows 0-5 the
@@ -30,11 +29,8 @@ before it, is still > 0.5.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from gssr_tpu_torch.ops import _kernels
 from gssr_tpu_torch.ops.binning import Binning
 from gssr_tpu_torch.ops.blend import (
     ALPHA_MAX,
@@ -47,13 +43,12 @@ from gssr_tpu_torch.ops.blend import (
     _GatherRows,
     _image_to_tiles,
     _pixel_coords,
-    _ptr,
     _tiles_to_image,
     _walk,
 )
 from gssr_tpu_torch.ops.blend2d import _tile_batches
+from gssr_tpu_torch.ops.blend_launch import TileBlend, TileKernels
 from gssr_tpu_torch.ops.projection import TILE
-from gssr_tpu_torch.utils.tracing import span
 
 P_RGB = 6         # 6-8
 P_NRM = 9         # 9-11 camera-space normal
@@ -71,8 +66,7 @@ PO_T = 7
 OUTP_ROWS = 8
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"blend_pgsr_fwd": 0, "blend_pgsr_obs": 0, "blend_pgsr_bwd": 0,
-            "blend_pgsr_bwd_v1": 0}
+LAUNCHES = {"blend_pgsr_fwd": 0, "blend_pgsr_obs": 0, "blend_pgsr_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -180,103 +174,27 @@ def blend_pgsr_bwd_plain(attrs, ranges, fwd_out, cot, tiles_x: int,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_inputs(attrs, ranges, tiles_x: int, tiles_y: int, *maps):
-    if attrs.dtype != torch.float32 or attrs.dim() != 2 \
-            or attrs.shape[0] != NUM_ATTRS_P or attrs.shape[1] % CHUNK:
-        raise ValueError(f"attrs must be float32 [{NUM_ATTRS_P}, I] with I "
-                         f"a multiple of {CHUNK}, got {attrs.dtype} "
-                         f"{tuple(attrs.shape)}")
-    if ranges.dtype != torch.int32 \
-            or ranges.shape != (tiles_x * tiles_y + 1,):
-        raise ValueError("ranges must be int32 [tiles + 1]")
-    shape = (tiles_y * TILE, tiles_x * TILE, OUTP_ROWS)
-    for m in maps:
-        if m.dtype != torch.float32 or tuple(m.shape) != shape:
-            raise ValueError(f"planar blend maps must be float32 {shape}")
-    for x in (attrs, ranges) + maps:
-        if x.device != attrs.device or not x.is_contiguous():
-            raise ValueError("blend inputs must be contiguous, one device")
-
-
-def _args(attrs, ranges, tiles_x: int, tiles_y: int):
-    return (_ptr(attrs), ctypes.c_int64(attrs.shape[1]), _ptr(ranges),
-            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y))
+_TILES = TileKernels("blend_pgsr", NUM_ATTRS_P, OUTP_ROWS,
+                     "planar blend maps", LAUNCHES)
 
 
 def blend_pgsr_fwd(attrs, ranges, tiles_x: int, tiles_y: int):
     """Forward planar blend -> [H, W, OUTP_ROWS]."""
-    if attrs.device.type == "cpu":
-        return blend_pgsr_fwd_plain(attrs, ranges, tiles_x, tiles_y)
-    _check_inputs(attrs, ranges, tiles_x, tiles_y)
-    out = torch.empty((tiles_y * TILE, tiles_x * TILE, OUTP_ROWS),
-                      dtype=torch.float32, device=attrs.device)
-    _kernels.launch("gssr_blend_pgsr_fwd", attrs.device,
-                    *_args(attrs, ranges, tiles_x, tiles_y), _ptr(out))
-    LAUNCHES["blend_pgsr_fwd"] += 1
-    return out
+    return _TILES.forward(blend_pgsr_fwd_plain, attrs, ranges, tiles_x,
+                          tiles_y)
 
 
 def blend_pgsr_observe(attrs, ranges, tiles_x: int, tiles_y: int):
     """Forward-only observe count per instance slot -> [I]."""
-    if attrs.device.type == "cpu":
-        return blend_pgsr_obs_plain(attrs, ranges, tiles_x, tiles_y)
-    _check_inputs(attrs, ranges, tiles_x, tiles_y)
-    # chunks past a tile's saturation and slots past ranges[T] stay zero
-    obs = torch.zeros(attrs.shape[1], dtype=torch.float32,
-                      device=attrs.device)
-    _kernels.launch("gssr_blend_pgsr_obs", attrs.device,
-                    *_args(attrs, ranges, tiles_x, tiles_y), _ptr(obs))
-    LAUNCHES["blend_pgsr_obs"] += 1
-    return obs
-
-
-def _bwd(kernel: str, attrs, ranges, fwd_out, cot, tiles_x: int,
-         tiles_y: int):
-    if attrs.device.type == "cpu":
-        return blend_pgsr_bwd_plain(attrs, ranges, fwd_out, cot, tiles_x,
-                                    tiles_y)
-    _check_inputs(attrs, ranges, tiles_x, tiles_y, fwd_out, cot)
-    # chunks past a tile's saturation stay zero
-    dattrs = torch.zeros_like(attrs)
-    _kernels.launch(f"gssr_{kernel}", attrs.device,
-                    *_args(attrs, ranges, tiles_x, tiles_y), _ptr(fwd_out),
-                    _ptr(cot), _ptr(dattrs))
-    LAUNCHES[kernel] += 1
-    return dattrs
+    return _TILES.observe(blend_pgsr_obs_plain, attrs, ranges, tiles_x,
+                          tiles_y)
 
 
 def blend_pgsr_bwd(attrs, ranges, fwd_out, cot, tiles_x: int, tiles_y: int):
     """Backward planar blend -> d(attrs) [NUM_ATTRS_P, I], rows 13-15 the
     observe counts and abs screen gradients."""
-    return _bwd("blend_pgsr_bwd", attrs, ranges, fwd_out, cot, tiles_x,
-                tiles_y)
-
-
-def blend_pgsr_bwd_v1(attrs, ranges, fwd_out, cot, tiles_x: int,
-                      tiles_y: int):
-    """The same through the first backward kernel, the yardstick of the
-    current one; no render calls it."""
-    return _bwd("blend_pgsr_bwd_v1", attrs, ranges, fwd_out, cot, tiles_x,
-                tiles_y)
-
-
-class _BlendPCore(torch.autograd.Function):
-    """Forward kernel in forward, backward kernel in backward."""
-
-    @staticmethod
-    def forward(ctx, attrs, ranges, tiles_x: int, tiles_y: int):
-        out = blend_pgsr_fwd(attrs, ranges, tiles_x, tiles_y)
-        ctx.save_for_backward(attrs, ranges, out)
-        ctx.tiles = (tiles_x, tiles_y)
-        return out
-
-    @staticmethod
-    def backward(ctx, g_rows):
-        with span("render.blend_backward"):
-            attrs, ranges, out = ctx.saved_tensors
-            d_attrs = blend_pgsr_bwd(attrs, ranges, out, g_rows.contiguous(),
-                                     *ctx.tiles)
-        return d_attrs, None, None, None
+    return _TILES.backward(blend_pgsr_bwd_plain, attrs, ranges, fwd_out, cot,
+                           tiles_x, tiles_y)
 
 
 def pack_instance_attrs_pgsr(mean2d, conic, color, opacity, normal, distance,
@@ -318,7 +236,9 @@ def blend_pgsr(mean2d, conic, color, opacity, normal, distance, obs_dummy,
     tiles_x, tiles_y = width // TILE, height // TILE
     attrs = pack_instance_attrs_pgsr(mean2d, conic, color, opacity, normal,
                                      distance, obs_dummy, abs_dummy, binning)
-    rows = _BlendPCore.apply(attrs, binning.tile_ranges, tiles_x, tiles_y)
+    rows = TileBlend.apply(blend_pgsr_fwd, blend_pgsr_bwd, None,
+                           torch.Tensor.contiguous, attrs,
+                           binning.tile_ranges, tiles_x, tiles_y)
     obs = None
     if forward_observe:
         obs = blend_pgsr_observe(attrs.detach(), binning.tile_ranges,

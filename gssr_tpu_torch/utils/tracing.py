@@ -53,7 +53,7 @@ step is the number of syncs, their length the host's wait:
 * sync.binning: the padded instance total that sizes a render's
   instance buffer (ops/binning.py::bin_gaussians), binning's only sync;
 * sync.blend_rows: the surfel backward's upload of the rows it zeroes
-  and of their zero (ops/blend2d.py::_Blend2Core.backward), two per
+  and of their zero (ops/blend2d.py::_cotangent), two per
   surfel render;
 * sync.ssim_window: the upload of the SSIM window (ops/ssim.py);
 * sync.sample_clip: each of the two bound uploads of a clamp in the

@@ -143,8 +143,8 @@ def test_expand_instances_plain_matches_duplicate_with_keys(case):
 
 
 def test_cpu_binning_launches_no_kernel():
-    """CPU tensors take the plain chain, through either design's wrapper:
-    the launch counters stay where they were."""
+    """CPU tensors take the plain chain, through bin_gaussians and through
+    expand_instances itself: the launch counters stay where they were."""
     from chip_smoke import expand_cases, expand_inputs
     from gssr_tpu_torch.ops import binning as B
     case = expand_cases()["random"]
@@ -152,7 +152,7 @@ def test_cpu_binning_launches_no_kernel():
     before = dict(B.LAUNCHES)
     out = B.bin_gaussians(rect, depth, tiles, tiles_x, tiles_y, mask)
     args = expand_inputs(case, torch.device("cpu"))
-    for a, b in zip(B.expand_instances_v1(*args),
+    for a, b in zip(B.expand_instances(*args),
                     B.expand_instances_plain(*args)):
         assert torch.equal(a, b)
     assert B.LAUNCHES == before

@@ -1,6 +1,6 @@
 """The port's tile blend against gssr_tpu's Pallas blend (interpret mode).
 
-`blend` runs the instance pack and `_BlendCore`, which on the CPU takes
+`blend` runs the instance pack and `TileBlend`, which on the CPU takes
 the kernels' plain versions blend_fwd_plain / blend_bwd_plain. Inputs are
 the shapes of tests/test_blend_pallas.py. Tolerances are that file's:
 forward atol 1e-5 / rtol 1e-4, gradients atol 2e-4 / rtol 2e-3.
@@ -140,9 +140,8 @@ def test_segment_sum_is_the_per_gaussian_sum():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
     """CUDA kernels against their plain versions on the same inputs, the
-    forward also on the alpha-edge draws (one tile each); the backward and
-    its first design (blend_bwd_v1) also against each other, bit for
-    bit."""
+    forward also on the alpha-edge draws (one tile each); the backward
+    also against a second run of itself, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
                     "at full size")
@@ -169,8 +168,6 @@ def test_kernels_match_plain_on_the_card():
     torch.testing.assert_close(d_k, d_p, atol=2e-4, rtol=2e-3)
     assert torch.equal(d_k, B.blend_bwd(attrs, tb.tile_ranges, out_k, cot,
                                         w // 16, h // 16))
-    assert torch.equal(d_k, B.blend_bwd_v1(attrs, tb.tile_ranges, out_k, cot,
-                                           w // 16, h // 16))
     a, r, tx, ty = (x.to(dev) if torch.is_tensor(x) else x
                     for x in edge_tiles(B.LIVE_ATTRS, B.NUM_ATTRS))
     torch.testing.assert_close(B.blend_fwd(a, r, tx, ty),

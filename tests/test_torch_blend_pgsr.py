@@ -195,9 +195,8 @@ def test_planar_cull_edge_cases(case):
 def test_planar_kernels_match_plain_on_the_card():
     """The three CUDA kernels against their plain versions on the same
     inputs, the forward also on the alpha-edge draws (one tile each); the
-    backward and its first design (blend_pgsr_bwd_v1) also
-    against each other and each twice, bit for bit, with the observe
-    kernel's counts in row 13."""
+    backward also against a second run of itself, bit for bit, with the
+    observe kernel's counts in row 13."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
                     "at full size")
@@ -214,15 +213,10 @@ def test_planar_kernels_match_plain_on_the_card():
     assert torch.equal(obs_k, B.blend_pgsr_obs_plain(a, r, tx, ty))
     cot = torch.randn(out_k.shape, device=dev)
     d_p = B.blend_pgsr_bwd_plain(a, r, out_k, cot, tx, ty)
-    d_k = {}
-    for bwd in (B.blend_pgsr_bwd, B.blend_pgsr_bwd_v1):
-        d_k[bwd] = bwd(a, r, out_k, cot, tx, ty)
-        torch.testing.assert_close(d_k[bwd], d_p, atol=2e-4, rtol=2e-3)
-        assert torch.equal(d_k[bwd][B.P_OBS], obs_k)
-        assert torch.equal(d_k[bwd], bwd(a, r, out_k, cot, tx, ty))
-    torch.testing.assert_close(d_k[B.blend_pgsr_bwd],
-                               d_k[B.blend_pgsr_bwd_v1], atol=2e-4,
-                               rtol=2e-3)
+    d_k = B.blend_pgsr_bwd(a, r, out_k, cot, tx, ty)
+    torch.testing.assert_close(d_k, d_p, atol=2e-4, rtol=2e-3)
+    assert torch.equal(d_k[B.P_OBS], obs_k)
+    assert torch.equal(d_k, B.blend_pgsr_bwd(a, r, out_k, cot, tx, ty))
     a, r, tx, ty = (x.to(dev) if torch.is_tensor(x) else x
                     for x in edge_tiles(B.LIVE_ATTRS_P, B.NUM_ATTRS_P))
     torch.testing.assert_close(B.blend_pgsr_fwd(a, r, tx, ty),
