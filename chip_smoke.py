@@ -45,9 +45,18 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             frame's key_tiles, long culled runs), then the inputs of one
             training step of each EXPAND_CELLS cell, which launched the
             kernel once a render; prints there the kernel's and the plain
-            chain's device times and the kernel's byte bound. With
-            --yardstick, every kernel of this phase is held against DIR's
-            build (below).
+            chain's device times and the kernel's byte bound. Then the
+            gather's backward (csrc/blend.cu's gather_bwd_kernel) against
+            gather_bwd_plain, bit for bit, on the card and the CPU, and
+            against a second run of itself: gather_cases' hand-made inputs
+            (C = 9, 16 and 21, dg attribute-major and row-major, a run of
+            3,000 slots, N = 0, all-filler buffers), then the inputs of
+            one training step of each EXPAND_CELLS cell, which launched it
+            once a render backward; prints at render 0 the kernel's device
+            time beside its byte bound, its time on the same cotangent
+            attribute-major, and the old sort-and-scan chain's
+            (segment_sum_sorted) time. With --yardstick, every kernel of
+            this phase is held against DIR's build (below).
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
@@ -1156,6 +1165,149 @@ def phase_bin_expand(dev, yard=None):
 
 
 # ---------------------------------------------------------------------------
+# 2d. the gather's backward against its plain version
+# ---------------------------------------------------------------------------
+
+def gather_cases():
+    """Hand-made inputs of the gather's backward on the CPU, name -> (dg
+    [I, C], slot_pos [I], seg_bounds [N + 1]): for C = 9, 16 and 21 (the
+    vanilla, planar and surfel rows), dg attribute-major (the C rows of a
+    wider buffer, transposed, as the packers' backward hands it) and
+    row-major, 400 gaussians with runs of 0-12 slots, two empty and one of
+    3,000, in a buffer with filler slots past the runs and slot_pos a
+    random permutation; N = 0; and all filler (50 gaussians, every run
+    empty)."""
+    g = torch.Generator().manual_seed(20)
+
+    def case(c, n, longest, layout):
+        counts = torch.randint(0, 13, (n,), generator=g)
+        if n:
+            counts[[3, 17]] = 0
+            counts[n // 2] = longest
+        real = int(counts.sum())
+        slots = (real // 128 + 2) * 128
+        seg = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(counts, 0)]).to(torch.int32)
+        slot_pos = torch.randperm(slots, generator=g).to(torch.int32)
+        if layout == "attribute-major":
+            dg = torch.randn(c + 3, slots, generator=g)[:c].T
+        else:
+            dg = torch.randn(slots, c, generator=g)
+        return dg, slot_pos, seg
+
+    cases = {f"C = {c} {layout}": case(c, 400, 3000, layout)
+             for c in (9, 16, 21)
+             for layout in ("attribute-major", "row-major")}
+    cases["N = 0"] = case(9, 0, 0, "attribute-major")
+    cases["all filler"] = case(16, 50, 0, "attribute-major")
+    cases["all filler"][2].zero_()
+    return cases
+
+
+def to_device(t, dev):
+    """t on dev with its strides."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=dev).copy_(t)
+
+
+def gather_work(args):
+    """The least bytes the gather's backward moves: each real slot's C
+    values and its position read once, each gaussian's segment bound read
+    and its C sums written once."""
+    dg, _, seg = args
+    c, n = dg.shape[1], seg.numel() - 1
+    return int(seg[-1]) * (4 * c + 4) + n * (4 * c + 4)
+
+
+def gid_of(args):
+    """The old chain's key, rebuilt from slot_pos and seg_bounds: each
+    sorted position's gaussian, N where no run reaches it."""
+    dg, slot_pos, seg = args
+    n = seg.numel() - 1
+    lengths = (seg[1:] - seg[:-1]).long()
+    gid = torch.full_like(slot_pos, n)
+    gid[slot_pos[:int(seg[-1])].long()] = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=dg.device), lengths)
+    return gid
+
+
+def phase_gather(dev, yard=None):
+    """csrc/blend.cu's gather backward against gather_bwd_plain on the
+    same CUDA tensors, on the CPU and against a second run of itself, bit
+    for bit: gather_cases' inputs, then those of one training step of each
+    EXPAND_CELLS cell, whose step must launch it once a render backward;
+    there render 0 is timed (device_ms) beside the kernel's byte bound, the
+    kernel on the same cotangent attribute-major, the old chain
+    (segment_sum_sorted on the rebuilt key) and the plain version (one
+    call)."""
+    from gssr_tpu_torch.ops import blend as B
+    if yard is not None and "gather_bwd" not in yard.keys:
+        print("[kernels] gather_bwd: the yardstick's build has no such "
+              "entry point; not held")
+        yard = None
+
+    def check(args, got, tag, cpu=True):
+        want = [B.gather_bwd_plain(*args)]
+        if cpu:
+            want.append(B.gather_bwd_plain(*(a.cpu() for a in args)))
+        for w in want:
+            assert torch.equal(got.cpu(), w.cpu()), \
+                f"gather_bwd differs from its plain version at {tag}"
+        assert torch.equal(got, B.gather_bwd(*args)), \
+            f"gather_bwd differs from run to run at {tag}"
+        held(yard, partial(B.gather_bwd, *args), got, tag)
+
+    for name, case in gather_cases().items():
+        args = tuple(to_device(t, dev) for t in case)
+        n = args[2].numel() - 1
+        before = B.LAUNCHES["gather_bwd"]
+        got = B.gather_bwd(*args)
+        assert B.LAUNCHES["gather_bwd"] == before + (n > 0), name
+        assert got.shape == (n, args[0].shape[1])
+        assert got.device.type == dev.type
+        check(args, got, name)
+        print(f"[kernels] gather_bwd {name}: {n} gaussians, "
+              f"{int(args[2][-1])} of {args[1].numel()} slots in runs, "
+              f"strides {args[0].stride()}; equal to the plain version (on "
+              f"the card and the CPU) and to a second run", flush=True)
+    for cell in EXPAND_CELLS:
+        calls, launched = cell_calls(cell, CELL_SEED, dev, B, "gather_bwd",
+                                     "gather_bwd")
+        assert launched == len(calls) >= 1, (cell, launched, len(calls))
+        for i, (args, got) in enumerate(calls):
+            tag = f"{cell} render {i}"
+            check(args, got, tag, cpu=False)
+            dg, slot_pos, seg = args
+            assert dg.is_contiguous(), f"{tag}: the cotangent is not row-major"
+            print(f"[kernels] gather_bwd at {tag}: {seg.numel() - 1} "
+                  f"gaussians, C = {dg.shape[1]}, {int(seg[-1])} of "
+                  f"{slot_pos.numel()} slots in runs, longest "
+                  f"{int((seg[1:] - seg[:-1]).max())}, dg strides "
+                  f"{dg.stride()}; equal to the plain version and to a "
+                  f"second run", flush=True)
+            if i:
+                continue
+            nbytes = gather_work(args)
+            bound_ms, bound_by = bound(0, nbytes)
+            ms, parent_ms = kernel_ms(partial(B.gather_bwd, *args), yard,
+                                      timer=lambda f: [device_ms(f)])
+            # the cotangent as the blend backward writes it, attribute-major
+            am = dg.T.contiguous().T
+            am_ms = device_ms(partial(B.gather_bwd, am, slot_pos, seg))
+            old = partial(B.segment_sum_sorted, am, gid_of(args), seg)
+            old_err = max_err(old(), got)
+            old_ms = device_ms(old, reps=20)
+            plain_ms = timed(partial(B.gather_bwd_plain, *args))[1]
+            print(f"[kernels] gather_bwd at {tag}: {ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {nbytes} bytes); on the "
+                  f"attribute-major cotangent {am_ms:.4f} ms; the old chain "
+                  f"(segment_sum_sorted) {old_ms:.3f} ms, max |diff| "
+                  f"{old_err:.3e}; plain {plain_ms:.2f} ms"
+                  + parent_line(parent_ms), flush=True)
+        del calls
+
+
+# ---------------------------------------------------------------------------
 # 3. the main path: train 3dgs through the CLI's entry point
 # ---------------------------------------------------------------------------
 
@@ -1367,6 +1519,8 @@ def phase_train(dev, root, card_line, method):
     # every render bins its instances through the expansion kernel
     assert launches["bin_expand"] >= renders, (launches["bin_expand"],
                                                renders)
+    # every step's render sums its gather's cotangents through the kernel
+    assert launches["gather_bwd"] >= STEPS, (launches["gather_bwd"], STEPS)
     # no render reads an observe count
     assert launches["blend_pgsr_obs"] == 0, launches
     psnr = trainer.evals[STEPS]["eval_psnr"]
@@ -3460,6 +3614,7 @@ def main(argv=None) -> int:
     phase_kernels_pgsr(dev, yard)
     phase_tile_mask(dev, yard)
     phase_bin_expand(dev, yard)
+    phase_gather(dev, yard)
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_scene(os.path.join(root, "scene"), dev)

@@ -1,7 +1,9 @@
-// Tile blend of vanilla 3DGS, forward and analytic backward, for Hopper
+// Tile blend of vanilla 3DGS, forward and analytic backward, and the
+// instance gather's backward that every blend family shares, for Hopper
 // (sm_90a). Plain C interface, loaded through ctypes by
 // gssr_tpu_torch/ops/_kernels.py; the plain PyTorch versions are
-// blend_fwd_plain / blend_bwd_plain in gssr_tpu_torch/ops/blend.py.
+// blend_fwd_plain / blend_bwd_plain / gather_bwd_plain in
+// gssr_tpu_torch/ops/blend.py.
 //
 // Replaces gssr_tpu/ops/blend_pallas.py::_fwd_kernel and ::_bwd_kernel.
 // Those rest on the TPU grid running in order on one core: the forward
@@ -67,6 +69,40 @@
 // and every sum over pixels runs in a fixed order (within a warp, adding
 // the same lane pairs in the same order every run, then the 8 warp
 // partials in warp order): no atomics.
+
+// The gather's backward (gather_bwd_kernel; its plain version is
+// gather_bwd_plain in ops/blend.py): the per-gaussian sum of the instance
+// cotangents that pack_instance_attrs* gathered, d_rows[g, c] = the
+// float64 sum over s in [seg[g], seg[g+1]) of dg[slot_pos[s], c], rounded
+// once to float32. It replaces no TPU kernel:
+// gssr_tpu/ops/binning.py::segment_reduce_sorted is plain jnp (a stable
+// sort of the slots by gaussian and a float64 prefix sum), which run
+// eagerly on the card was ~25 launches, a second sort and three [I, C]
+// float64 temporaries. slot_pos is binning's own sort, inverted
+// (ops/binning.py), so no second sort is needed; a gaussian's slots are
+// walked in ascending s, which is ascending sorted position, from 0.0,
+// one IEEE double add at a time (__dadd_rn, never contracted): a fixed
+// order, so the gradient is the same on every run, with no atomics, and
+// float64 keeps it exact to float32 rounding.
+//
+// The bound is bytes: each slot's C values and its position read once,
+// each gaussian's C sums written once, I (4C + 4) + N (4C + 4) bytes,
+// ~0.14 ms at 3.35 TB/s for 10M slots of C = 9; the few adds a byte cost
+// nothing beside that. The slots' positions are scattered over the
+// buffer, so every read of dg is a random access: where dg is
+// attribute-major (as the blend backward writes it) each value is a
+// sector of its own, 32 bytes moved for 4 used, and the kernel read 2.9
+// ms at 10M slots (PERF.md section 6). The caller (ops/blend.py::
+// _GatherRows) hands it row-major, from the hit multiply it makes anyway,
+// so that a slot's row is one or two sectors; then it reads 0.48 ms. A
+// group of c lanes takes one gaussian, so a slot's row is one coalesced
+// load, and each lane keeps GATHER_BATCH slots' loads in flight. The other
+// design, a thread per (gaussian, row) with consecutive threads on
+// consecutive gaussians, reads a row's value of 32 slots in one load and
+// leaves a warp waiting for the longest of 32 runs; on the attribute-major
+// layout it was faster at C = 9 and 16 (1.9 against 2.9 ms at 10M slots),
+// on the row-major one 6.0-12.6x slower at every input measured, and it is
+// gone (PERF.md section 6 keeps its figures).
 
 #include "common.cuh"
 
@@ -190,6 +226,56 @@ blend_bwd_kernel(const float* __restrict__ attrs, long long n_inst,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The gather's backward: per-gaussian sums of the instance cotangents
+// ---------------------------------------------------------------------------
+
+constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_BATCH = 8;    // slot loads a lane keeps in flight
+
+// a warp per 32 / c gaussians, lane `row` of a gaussian's group owning row
+// `row`. Each round the group's lanes fetch the positions of c consecutive
+// slots of the run in one load and broadcast them by shuffle; for each
+// slot the group reads its row of c values, one sector or two when dg is
+// row-major.
+__global__ void __launch_bounds__(GATHER_THREADS)
+gather_bwd_kernel(const float* __restrict__ dg, long long stride_i,
+                  long long stride_c, const int* __restrict__ slot_pos,
+                  const int* __restrict__ seg, int n, int c,
+                  float* __restrict__ d_rows) {
+  const int lane = threadIdx.x & 31;
+  const int per_warp = 32 / c;
+  const int group = lane / c, row = lane - group * c;
+  const long long g =
+      ((static_cast<long long>(blockIdx.x) * GATHER_THREADS + threadIdx.x) >>
+       5) * per_warp + group;
+  const bool active = group < per_warp && g < n;
+  const int s0 = active ? seg[g] : 0;
+  const int len = active ? seg[g + 1] - s0 : 0;
+  const int first = group * c;
+  const float* __restrict__ col = dg + row * stride_c;
+  double acc = 0.0;
+  for (int k0 = 0; __any_sync(FULL, k0 < len); k0 += c) {
+    const int pos = k0 + row < len ? slot_pos[s0 + k0 + row] : 0;
+    const int m = len - k0;          // slots left in the run
+    for (int t0 = 0; t0 < c && __any_sync(FULL, t0 < m); t0 += GATHER_BATCH) {
+      float v[GATHER_BATCH];
+#pragma unroll
+      for (int u = 0; u < GATHER_BATCH; ++u) {
+        const int t = t0 + u;
+        const int p = __shfl_sync(FULL, pos, min(first + t, 31));
+        v[u] = t < c && t < m ? col[p * stride_i] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < GATHER_BATCH; ++u) {
+        const int t = t0 + u;
+        if (t < c && t < m) acc = __dadd_rn(acc, static_cast<double>(v[u]));
+      }
+    }
+  }
+  if (active) d_rows[g * c + row] = __double2float_rn(acc);
+}
+
 }  // namespace
 
 extern "C" {
@@ -225,6 +311,21 @@ int gssr_blend_fwd_occupancy(int* out, void* stream) {
 // not used
 int gssr_blend_bwd_occupancy(int* out, void* stream) {
   return static_cast<int>(occupancy(blend_bwd_kernel, 0, out));
+}
+
+// d_rows [n, c] row-major, the per-gaussian sums of dg [I, c] (element
+// strides stride_i, stride_c) over each gaussian's slots; slot_pos [I] and
+// seg [n + 1] int32; c <= 32. A warp per 32 / c gaussians.
+int gssr_gather_bwd(const float* dg, long long stride_i, long long stride_c,
+                    const int* slot_pos, const int* seg, long long n, int c,
+                    float* d_rows, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const long long warps = (n + 32 / c - 1) / (32 / c);
+  const long long blocks = (warps * 32 + GATHER_THREADS - 1) / GATHER_THREADS;
+  gather_bwd_kernel<<<static_cast<unsigned>(blocks), GATHER_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      dg, stride_i, stride_c, slot_pos, seg, static_cast<int>(n), c, d_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -33,6 +33,7 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _FWD = (_P, _I64, _P, _I32, _I32, _P)
 _BWD = (_P, _I64, _P, _I32, _I32, _P, _P, _P)
 _EXPAND = (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P)
+_GATHER = (_P, _I64, _I64, _P, _P, _I64, _I32, _P)
 # source -> its C entry points: (argtypes without the trailing stream);
 # *_occupancy report a kernel's registers, shared memory and blocks per SM.
 SOURCES = {
@@ -41,6 +42,7 @@ SOURCES = {
         "gssr_blend_fwd_occupancy": (_P,),
         "gssr_blend_bwd": _BWD,
         "gssr_blend_bwd_occupancy": (_P,),
+        "gssr_gather_bwd": _GATHER,
     },
     "blend2d.cu": {
         "gssr_blend2d_fwd": _FWD,

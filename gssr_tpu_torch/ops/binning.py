@@ -9,8 +9,14 @@ The layout is the reference's, because the blend kernels rely on it:
   alpha = 0 no-ops and receive zero gradient);
 * one stable sort of a fused int32 (tile | quantized depth) key, whose
   top bit is flipped so signed order equals unsigned order;
-* the `gid_reduce` / `seg_bounds` pair behind the deterministic
-  per-gaussian gradient sum.
+* the `slot_pos` / `seg_bounds` pair behind the deterministic
+  per-gaussian gradient sum (ops/blend.py::gather_bwd): seg_bounds
+  delimits each gaussian's run of real slots in expansion order, and
+  slot_pos maps a slot to its place in the sort. Within one gaussian the
+  keys share their depth and the tile id rises with the slot, so the run
+  walks the gaussian's instances in sorted order, the order in which a
+  stable sort by gaussian (`gid_reduce`, the reference's and the texel
+  and observe sums' key) lists them.
 
 The reference's `chunk_map` / `n_live_chunks` (chunk -> tile, for its flat
 chunk grid) are not built: the CUDA kernels run one block per tile and
@@ -50,6 +56,7 @@ class Binning(NamedTuple):
     hit: torch.Tensor            # [I] float32 in {0, 1}
     gid_reduce: torch.Tensor     # [I] int32 gaussian id, sentinel N if none
     seg_bounds: torch.Tensor     # [N + 1] int32 per-gaussian segment starts
+    slot_pos: torch.Tensor       # [I] int32 sorted position of each slot
 
 
 def tile_cover_counts(rect, visible, tiles_x: int, tiles_y: int):
@@ -242,6 +249,10 @@ def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
                                     fill_starts, num_rendered, instance_cap,
                                     tiles_x, depth_bits)
     _, order = torch.sort(key, stable=True)
+    # the sort's permutation inverted: slot (in expansion order) -> its
+    # sorted position
+    slot_pos = torch.empty_like(key)
+    slot_pos[order] = torch.arange(instance_cap, **i32)
     spayload = payload[order]
     gauss_id = spayload & 0x1FFFFFFF
     hit = (spayload >> 30).float()
@@ -253,4 +264,4 @@ def bin_gaussians(rect, depth, tiles_touched, tiles_x: int, tiles_y: int,
                    num_rendered=num_rendered,
                    overflow=torch.zeros((), dtype=torch.bool, device=dev),
                    tile_counts=counts, hit=hit, gid_reduce=gid_reduce,
-                   seg_bounds=seg_bounds)
+                   seg_bounds=seg_bounds, slot_pos=slot_pos)

@@ -29,13 +29,18 @@ multiplied by (1 - alpha) for every alpha > 0 instance; an instance
 contributes w = alpha * T_before only while T_all * (1 - alpha) >= 1e-4.
 
 The per-gaussian reduction of the instance gradients (the gather's
-backward) is a sorted segment sum, so gradients are reproducible run to
-run: no atomics anywhere on the path.
+backward) is a fixed-order float64 sum over each gaussian's slots, walked
+in binning's own sort order (`gather_bwd`, csrc/blend.cu's
+gather_bwd_kernel; `gather_bwd_plain` for CPU tensors), so gradients are
+reproducible run to run: no atomics anywhere on the path.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from gssr_tpu_torch.ops import _kernels
 from gssr_tpu_torch.ops.binning import Binning
 from gssr_tpu_torch.ops.blend_launch import CHUNK, TileBlend, TileKernels
 from gssr_tpu_torch.ops.projection import TILE
@@ -64,7 +69,7 @@ BLOCK_W, BLOCK_H = 8, 4
 WARPS = PIX // 32
 
 # kernel launches since the last reset (the CPU plain path is not counted)
-LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
+LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0, "gather_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +331,8 @@ def _cotangent(d_img, d_T):
 
 def segment_sum_sorted(vals, gid_reduce, seg_bounds, block: int = CHUNK):
     """Per-gaussian sums of per-slot values [I, C] -> [N, C], without
-    atomics. A stable sort by gaussian id puts gaussian g's slots at
+    atomics (PGSR's texel gathers and observe sum; the render's gather
+    takes gather_bwd). A stable sort by gaussian id puts gaussian g's slots at
     [seg_bounds[g], seg_bounds[g+1]); sentinel slots (id N) sort last.
     Each sum is the difference of a float64 prefix sum at the two bounds
     (as in gssr_tpu's segment_reduce_sorted), built in two levels: scans
@@ -346,24 +352,93 @@ def segment_sum_sorted(vals, gid_reduce, seg_bounds, block: int = CHUNK):
     return (prefix[:, 1:] - prefix[:, :-1]).T.to(vals.dtype)
 
 
+def gather_bwd_plain(dg, slot_pos, seg_bounds):
+    """Plain version of the gather's backward kernel (csrc/blend.cu's
+    gather_bwd_kernel): per-gaussian sums [N, C] of per-slot values dg
+    [I, C], d_rows[g] = the float64 sum over s in [seg_bounds[g],
+    seg_bounds[g+1]) of dg[slot_pos[s]], rounded once to dg's dtype. Step
+    k adds the k-th slot of every run longer than k, one float64 add each,
+    so every sum takes its adds in the kernel's order, from 0.0 in
+    ascending s, and memory stays O(N C)."""
+    n, c = seg_bounds.shape[0] - 1, dg.shape[1]
+    start = seg_bounds[:-1].long()
+    length = seg_bounds[1:].long() - start
+    by_len = torch.argsort(length, descending=True, stable=True)
+    start = start[by_len]
+    # the runs longer than k are the first live[k] runs by length
+    longest = int(length.max()) if n else 0
+    live = n - torch.searchsorted(length[by_len].flip(0),
+                                  torch.arange(longest, device=dg.device),
+                                  right=True)
+    pos = slot_pos.long()
+    acc = torch.zeros((n, c), dtype=torch.float64, device=dg.device)
+    for k, m in enumerate(live.tolist()):
+        acc[:m] += dg[pos[start[:m] + k]].double()
+    d_rows = torch.empty((n, c), dtype=dg.dtype, device=dg.device)
+    d_rows[by_len] = acc.to(dg.dtype)
+    return d_rows
+
+
+def gather_bwd(dg, slot_pos, seg_bounds):
+    """The gather's backward, d_rows [N, C] from the instance cotangents dg
+    [I, C] (any strides; row-major reads fastest, csrc/blend.cu says why):
+    csrc/blend.cu's kernel for CUDA tensors, bit for bit gather_bwd_plain,
+    which CPU tensors take. One launch, none for N = 0; no host sync."""
+    if dg.device.type != "cuda":
+        return gather_bwd_plain(dg, slot_pos, seg_bounds)
+    n, (slots, c) = seg_bounds.shape[0] - 1, dg.shape
+    if dg.dtype != torch.float32 or not 0 < c <= 32:
+        raise ValueError(f"dg must be float32 [I, C] with 0 < C <= 32, got "
+                         f"{dg.dtype} {tuple(dg.shape)}")
+    if slot_pos.dtype != torch.int32 or slot_pos.shape != (slots,) \
+            or seg_bounds.dtype != torch.int32 or seg_bounds.dim() != 1:
+        raise ValueError("slot_pos must be int32 [I] and seg_bounds int32 "
+                         "[N + 1]")
+    for x in (slot_pos, seg_bounds):
+        if x.device != dg.device or not x.is_contiguous():
+            raise ValueError("gather inputs must be on one device, the "
+                             "indices contiguous")
+    d_rows = torch.empty((n, c), dtype=torch.float32, device=dg.device)
+    if n == 0:
+        return d_rows
+    _kernels.launch("gssr_gather_bwd", dg.device,
+                    ctypes.c_void_p(dg.data_ptr()),
+                    ctypes.c_int64(dg.stride(0)),
+                    ctypes.c_int64(dg.stride(1)),
+                    ctypes.c_void_p(slot_pos.data_ptr()),
+                    ctypes.c_void_p(seg_bounds.data_ptr()),
+                    ctypes.c_int64(n), ctypes.c_int(c),
+                    ctypes.c_void_p(d_rows.data_ptr()))
+    LAUNCHES["gather_bwd"] += 1
+    return d_rows
+
+
 class _GatherRows(torch.autograd.Function):
-    """per_gauss[gauss_id] whose backward is the sorted segment sum."""
+    """per_gauss[gauss_id] * hit[:, None]: the instance rows [I, C], zero
+    at filler and non-hit slots. Its backward multiplies the cotangent by
+    the hit again, into a row-major buffer (the blend backward writes it
+    attribute-major; one elementwise pass either way), and sums each
+    gaussian's slots in binning's sort order with gather_bwd, which reads a
+    row-major slot as one or two sectors."""
 
     @staticmethod
-    def forward(ctx, per_gauss, gauss_id, gid_reduce, seg_bounds):
-        ctx.save_for_backward(gid_reduce, seg_bounds)
+    def forward(ctx, per_gauss, gauss_id, hit, slot_pos, seg_bounds):
+        ctx.save_for_backward(hit, slot_pos, seg_bounds)
         if per_gauss.shape[0] == 0:
-            # no gaussian: every slot is a filler, zeroed by its hit
+            # no gaussian: every slot is a filler
             return per_gauss.new_zeros((gauss_id.shape[0],
                                         per_gauss.shape[1]))
-        return per_gauss[gauss_id.long()]
+        return per_gauss[gauss_id.long()] * hit[:, None]
 
     @staticmethod
     def backward(ctx, dg):
-        gid_reduce, seg_bounds = ctx.saved_tensors
+        hit, slot_pos, seg_bounds = ctx.saved_tensors
         with span("render.gather_backward"):
-            d_rows = segment_sum_sorted(dg, gid_reduce, seg_bounds)
-        return d_rows, None, None, None
+            rows = torch.mul(dg, hit[:, None],
+                             out=torch.empty(dg.shape, dtype=dg.dtype,
+                                             device=dg.device))
+            d_rows = gather_bwd(rows, slot_pos, seg_bounds)
+        return d_rows, None, None, None, None
 
 
 def pack_instance_attrs(mean2d, conic, color, opacity, binning: Binning):
@@ -371,9 +446,8 @@ def pack_instance_attrs(mean2d, conic, color, opacity, binning: Binning):
     [NUM_ATTRS, I]. The hit multiply zeroes filler / non-hit slots, and
     symmetrically their gradients."""
     per_gauss = torch.cat([mean2d, conic, opacity[:, None], color], dim=1)
-    g = _GatherRows.apply(per_gauss, binning.gauss_id, binning.gid_reduce,
-                          binning.seg_bounds)
-    live = (g * binning.hit[:, None]).T
+    live = _GatherRows.apply(per_gauss, binning.gauss_id, binning.hit,
+                             binning.slot_pos, binning.seg_bounds).T
     return torch.cat([live, live.new_zeros(NUM_ATTRS - LIVE_ATTRS,
                                            live.shape[1])]).contiguous()
 

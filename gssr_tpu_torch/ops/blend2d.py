@@ -383,9 +383,8 @@ def pack_instance_attrs_2d(mean2d, Tmat, normal, color, opacity,
                            torch.linalg.cross(Tw, Tv),
                            torch.linalg.cross(Tu, Tw), Tw, opacity[:, None],
                            color, normal], dim=1)
-    g = _GatherRows.apply(per_gauss, binning.gauss_id, binning.gid_reduce,
-                          binning.seg_bounds)
-    live = (g * binning.hit[:, None]).T
+    live = _GatherRows.apply(per_gauss, binning.gauss_id, binning.hit,
+                             binning.slot_pos, binning.seg_bounds).T
     return torch.cat([live, live.new_zeros(NUM_ATTRS2 - LIVE_ATTRS2,
                                            live.shape[1])]).contiguous()
 

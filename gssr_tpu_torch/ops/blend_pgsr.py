@@ -206,9 +206,9 @@ def pack_instance_attrs_pgsr(mean2d, conic, color, opacity, normal, distance,
     symmetrically their gradients."""
     per_gauss = torch.cat([mean2d, conic, opacity[:, None], color, normal,
                            distance[:, None], obs_dummy, abs_dummy], dim=1)
-    g = _GatherRows.apply(per_gauss, binning.gauss_id, binning.gid_reduce,
-                          binning.seg_bounds)
-    return (g * binning.hit[:, None]).T.contiguous()
+    live = _GatherRows.apply(per_gauss, binning.gauss_id, binning.hit,
+                             binning.slot_pos, binning.seg_bounds)
+    return live.T.contiguous()
 
 
 class PlanarMaps:

@@ -32,8 +32,9 @@ Stage spans (where; stage):
   colours) (stage preprocess); render.binning (binning); render.blend
   (the instance gather, the blend forward and the maps' crop and
   composite) and render.blend_backward (the blend kernels' backward, on
-  autograd's thread) (blend); render.gather_backward (the gather's sorted
-  float64 segment sum, ops/blend.py::_GatherRows.backward; gather_bwd).
+  autograd's thread) (blend); render.gather_backward (the gather's
+  per-gaussian float64 sum in binning's order, one kernel launch,
+  ops/blend.py::_GatherRows.backward; gather_bwd).
   The render.* ranges wrap the calls in ops/rasterize.py,
   rasterize2d.py and rasterize_pgsr.py, not ops/projection.py, so that
   the anchor prefilter's own preprocess stays in scaffold.prefilter.

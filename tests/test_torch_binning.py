@@ -157,3 +157,34 @@ def test_cpu_binning_launches_no_kernel():
         assert torch.equal(a, b)
     assert B.LAUNCHES == before
     assert int(out.num_rendered) == int(tiles.sum()) > 0
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_slot_pos_is_the_stable_sort_by_gaussian(case):
+    """slot_pos, each slot's place in binning's sort, is a permutation of
+    the buffer; over the real slots it lists every gaussian's instances in
+    the order a stable sort of gid_reduce lists them, segment by segment,
+    which is the order the gather's backward adds them in. With and
+    without an intersect mask, wide rects (runs past 32 tiles) and a band
+    whose keys keep the frame's tile bits."""
+    from chip_smoke import expand_cases
+    from gssr_tpu_torch.ops.binning import bin_gaussians
+    rect, depth, tiles, mask, tiles_x, tiles_y, key_tiles = \
+        expand_cases()[case]
+    b = bin_gaussians(rect, depth, tiles, tiles_x, tiles_y, mask,
+                      key_tiles=key_tiles)
+    slots = b.gauss_id.shape[0]
+    assert b.slot_pos.dtype == torch.int32 and b.slot_pos.shape == (slots,)
+    assert torch.equal(b.slot_pos.sort().values,
+                       torch.arange(slots, dtype=torch.int32))
+    real = int(b.seg_bounds[-1])
+    assert real == int(b.num_rendered) == int(tiles.sum())
+    by_gaussian = torch.sort(b.gid_reduce, stable=True).indices
+    assert torch.equal(b.slot_pos[:real].long(), by_gaussian[:real])
+    # each slot's sorted position carries its own gaussian
+    n = rect.shape[0]
+    runs = torch.repeat_interleave(torch.arange(n, dtype=torch.int32),
+                                   (b.seg_bounds[1:] - b.seg_bounds[:-1])
+                                   .long())
+    assert torch.equal(b.gid_reduce[b.slot_pos[:real].long()], runs)
+    assert torch.equal(b.gauss_id[b.slot_pos[:real].long()], runs)

@@ -137,6 +137,178 @@ def test_segment_sum_is_the_per_gaussian_sum():
     assert torch.equal(out, segment_sum_sorted(*args))
 
 
+# chip_smoke.gather_cases' inputs, which the card holds the gather's
+# backward kernel to as well
+GATHER_CASES = ["C = 9 attribute-major", "C = 9 row-major",
+                "C = 16 attribute-major", "C = 16 row-major",
+                "C = 21 attribute-major", "C = 21 row-major", "N = 0",
+                "all filler"]
+
+
+def _per_gaussian_sum(dg, slot_pos, seg_bounds):
+    """Independent reference of the gather's backward: each slot's row of
+    dg added to its gaussian's by a float64 index_add_ over the slots'
+    sorted positions (gaussian N takes the slots no run reaches)."""
+    n = seg_bounds.numel() - 1
+    lengths = (seg_bounds[1:] - seg_bounds[:-1]).long()
+    gid = torch.full((dg.shape[0],), n, dtype=torch.int64)
+    gid[slot_pos[:int(seg_bounds[-1])].long()] = torch.repeat_interleave(
+        torch.arange(n), lengths)
+    return torch.zeros(n + 1, dg.shape[1], dtype=torch.float64).index_add_(
+        0, gid, dg.double())[:n]
+
+
+def _assert_float32_rounding(got, want64):
+    """got is want64 rounded to float32, up to one unit in the last place
+    (two float64 sums in different orders may straddle a rounding
+    boundary) and the float64 sums' own error where terms cancel."""
+    assert got.dtype == torch.float32 and got.shape == want64.shape
+    torch.testing.assert_close(got, want64.float(), rtol=2.0 ** -23,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_bwd_plain_is_the_per_gaussian_sum(case):
+    """gather_bwd_plain, the CPU path and the card's reference, equals an
+    independent float64 index_add_ at float32 rounding, is bitwise
+    reproducible, and is what gather_bwd gives CPU tensors, with no
+    launch counted."""
+    from chip_smoke import gather_cases
+    from gssr_tpu_torch.ops import blend as B
+    dg, slot_pos, seg = gather_cases()[case]
+    out = B.gather_bwd_plain(dg, slot_pos, seg)
+    _assert_float32_rounding(out, _per_gaussian_sum(dg, slot_pos, seg))
+    assert torch.equal(out, B.gather_bwd_plain(dg, slot_pos, seg))
+    assert torch.equal(out, B.gather_bwd_plain(dg.contiguous(), slot_pos,
+                                               seg))
+    before = dict(B.LAUNCHES)
+    assert torch.equal(out, B.gather_bwd(dg, slot_pos, seg))
+    assert B.LAUNCHES == before
+    if case == "all filler":
+        assert not out.any()
+
+
+def test_gather_cases_cover_what_the_kernel_meets():
+    """The cases hold a run of thousands of slots, empty runs, both dg
+    layouts and the three row counts of the blend families."""
+    from chip_smoke import gather_cases
+    cases = gather_cases()
+    lengths = torch.cat([seg[1:] - seg[:-1] for _, _, seg in cases.values()])
+    assert int(lengths.max()) >= 3000 and int((lengths == 0).sum()) > 50
+    assert {dg.shape[1] for dg, _, _ in cases.values()} == {9, 16, 21}
+    assert {dg.stride(0) for dg, _, _ in cases.values()} >= {1, 9, 16, 21}
+    for dg, slot_pos, seg in cases.values():
+        assert torch.equal(slot_pos.sort().values,
+                           torch.arange(dg.shape[0], dtype=torch.int32))
+
+
+def _pack_inputs(family, n, g):
+    """A packer of ops/blend*.py and random per-gaussian inputs for it."""
+    from gssr_tpu_torch.ops import blend, blend2d, blend_pgsr
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+
+    if family == "vanilla":
+        return blend.pack_instance_attrs, [r(n, 2), r(n, 3), r(n, 3), r(n)]
+    if family == "surfel":
+        return blend2d.pack_instance_attrs_2d, [r(n, 2), r(n, 3, 3),
+                                                r(n, 3), r(n, 3), r(n)]
+    return blend_pgsr.pack_instance_attrs_pgsr, [
+        r(n, 2), r(n, 3), r(n, 3), r(n), r(n, 3), r(n), r(n, 1), r(n, 2)]
+
+
+@pytest.mark.parametrize("family", ["vanilla", "surfel", "planar"])
+def test_gather_rows_backward_is_the_per_gaussian_sum(family, monkeypatch):
+    """Through pack_instance_attrs, pack_instance_attrs_2d and
+    pack_instance_attrs_pgsr, the gather's backward hands the per-gaussian
+    rows the float64 sum of the hit-masked cotangents of each gaussian's
+    slots (at float32 rounding), through gather_bwd on a row-major
+    cotangent and binning's slot_pos, bit for bit gather_bwd_plain's; the
+    forward is per_gauss[gauss_id] masked by the hit."""
+    import importlib
+
+    from gssr_tpu_torch.ops import blend
+    from gssr_tpu_torch.ops.binning import bin_gaussians
+    n, g = 300, torch.Generator().manual_seed(7)
+    # splats of 1-4 x 1-3 tiles over 12 x 9 tiles, a third culled
+    x0, y0 = torch.randint(0, 12, (n,), generator=g), \
+        torch.randint(0, 9, (n,), generator=g)
+    x1 = torch.clamp(x0 + torch.randint(1, 5, (n,), generator=g), max=12)
+    y1 = torch.clamp(y0 + torch.randint(1, 4, (n,), generator=g), max=9)
+    rect = torch.stack([x0, y0, x1, y1], 1).to(torch.int32)
+    culled = torch.rand(n, generator=g) < 1 / 3
+    tiles = torch.where(culled, 0, (x1 - x0) * (y1 - y0)).to(torch.int32)
+    depth = torch.rand(n, generator=g) * 10
+    mask = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    b = bin_gaussians(rect, depth, tiles, 12, 9,
+                      None if family == "surfel" else mask)
+    pack, inputs = _pack_inputs(family, n, g)
+    module = importlib.import_module(pack.__module__)
+    gather_rows, gather_bwd, seen, handed = (blend._GatherRows,
+                                             blend.gather_bwd, [], [])
+
+    class Spy:
+        @staticmethod
+        def apply(per_gauss, *rest):
+            per_gauss.retain_grad()
+            out = gather_rows.apply(per_gauss, *rest)
+            out.register_hook(seen.append)
+            seen.append(per_gauss)
+            seen.append(out.detach())
+            return out
+
+    def spy_bwd(dg, *rest):
+        handed.append(dg)
+        return gather_bwd(dg, *rest)
+
+    monkeypatch.setattr(module, "_GatherRows", Spy)
+    monkeypatch.setattr(blend, "gather_bwd", spy_bwd)
+    for x in inputs:
+        x.requires_grad_(True)
+    attrs = pack(*inputs, b)
+    w = torch.randn(attrs.shape, generator=g)
+    (attrs * w).sum().backward()
+    per_gauss, rows, d_rows = seen
+    assert torch.equal(rows, per_gauss.detach()[b.gauss_id.long()]
+                       * b.hit[:, None])
+    assert int(b.seg_bounds[-1]) > n and 0 < int(b.hit.sum()) < len(b.hit)
+    dg = d_rows * b.hit[:, None]
+    (rows_handed,) = handed
+    assert rows_handed.is_contiguous() and torch.equal(rows_handed, dg)
+    _assert_float32_rounding(per_gauss.grad,
+                             _per_gaussian_sum(dg, b.slot_pos, b.seg_bounds))
+    assert torch.equal(per_gauss.grad,
+                       blend.gather_bwd_plain(dg, b.slot_pos, b.seg_bounds))
+    # the reference's own key: per sorted position, its gaussian
+    ref = torch.zeros(n + 1, dg.shape[1], dtype=torch.float64).index_add_(
+        0, b.gid_reduce.long(), dg.double())[:n]
+    _assert_float32_rounding(per_gauss.grad, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_bwd_kernel_matches_plain_on_the_card(case):
+    """The gather's backward kernel is bit for bit gather_bwd_plain (on the
+    card and on the CPU) and identical from run to run; N = 0 launches
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
+                    "at the cells' inputs too")
+    from chip_smoke import gather_cases, to_device
+    from gssr_tpu_torch.ops import blend as B
+    cpu = gather_cases()[case]
+    args = tuple(to_device(t, torch.device("cuda")) for t in cpu)
+    n = args[2].numel() - 1
+    before = B.LAUNCHES["gather_bwd"]
+    got = B.gather_bwd(*args)
+    assert B.LAUNCHES["gather_bwd"] == before + (n > 0)
+    assert torch.equal(got, B.gather_bwd_plain(*args))
+    assert torch.equal(got.cpu(), B.gather_bwd_plain(*cpu))
+    assert torch.equal(got, B.gather_bwd(*args))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card():
     """CUDA kernels against their plain versions on the same inputs, the
