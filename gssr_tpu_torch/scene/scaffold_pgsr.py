@@ -7,10 +7,14 @@ L1, D-SSIM and the scaffold scaling loss. Past `multi_view_from` a step
 also decodes and renders a neighbour camera drawn from the camera's
 `near_ids`, with its own prefilter and level gate, and adds PGSR's normal,
 geo and NCC losses (scene/pgsr.py, whose helpers this scene borrows as the
-reference does). The anchor statistics come from the reference render
-alone, and densification stays the anchor scene's. dp and band run as in
-scene/scaffold.py, band through both renders; gshard is not wired through
-the planar step (nor is it in gssr_tpu).
+reference does). The neighbour's prefilter, decode and render run inside
+the span scaffold.near_render (its prefilter and decode in their own
+scaffold.prefilter and scaffold.decode), the normal, geo and NCC terms
+inside scaffold.multiview (utils/tracing.py). The anchor statistics come
+from the reference render alone, and densification stays the anchor
+scene's. dp and band run as in scene/scaffold.py, band through both
+renders; gshard is not wired through the planar step (nor is it in
+gssr_tpu).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from gssr_tpu_torch.dataio.view_selection import assign_near_ids
 from gssr_tpu_torch.ops.rasterize_pgsr import rasterize_pgsr
 from gssr_tpu_torch.scene.pgsr import PGSRScene
 from gssr_tpu_torch.scene.scaffold import ScaffoldScene, ScaffoldSceneConfig
+from gssr_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -88,13 +93,20 @@ class ScaffoldPGSRScene(ScaffoldScene):
         if self.multi_view(cams, step):
             near, near_gray = self.near_for(cams)
             near_cam = near.arrays(self.device)
-            n_visible, n_gate, _ = self.visible_anchors(state, near_cam,
-                                                        step)
-            _, near_out = self.decode_and_render(
-                anchors, mlp, near_cam, near.uid, n_visible, state.active, bg,
-                level_scale_gate=n_gate, **self.render_par())
-            terms.update(self.multi_view_terms(out, near_out, cam, near_cam,
-                                               gt, near_gray, step))
+            with span("scaffold.near_render"):
+                with span("scaffold.prefilter"):
+                    n_visible, n_gate, _ = self.visible_anchors(
+                        state, near_cam, step)
+                with span("scaffold.decode"):
+                    near_ng = self.gaussians.decode(
+                        anchors, mlp, near_cam.campos, near.uid, n_visible,
+                        state.active, level_scale_gate=n_gate)
+                near_out = self.render_neural(near_ng, near_cam, bg,
+                                              **self.render_par())
+            with span("scaffold.multiview"):
+                terms.update(self.multi_view_terms(out, near_out, cam,
+                                                   near_cam, gt, near_gray,
+                                                   step))
         return terms
 
     def aux_arrays(self) -> List[np.ndarray]:

@@ -22,8 +22,15 @@ Stage spans (where; stage):
   the normal, geo and NCC terms, stage loss: neither suffix names a
   stage); scaffold.prefilter, .decode,
   .render_and_loss, .loss, .backward, .adam, .stats
-  (scene/scaffold.py::train_step, which the octree and anchor-surfel
-  scenes inherit). `*.render_and_loss` names no stage of its own: its
+  (scene/scaffold.py::train_step, which the octree, anchor-surfel and
+  anchor-planar scenes inherit); past multi_view_from the anchor-planar
+  step (scene/scaffold_pgsr.py::step_terms, scaffold-pgsr and
+  octree-pgsr) adds, inside scaffold.loss, scaffold.near_render, the
+  neighbour camera's prefilter, level gate, decode and render forward
+  (its own scaffold.prefilter and scaffold.decode inside it, its render
+  kernels in their render.* stages, the rest stage loss), and
+  scaffold.multiview, the normal, geo and NCC terms (stage loss).
+  `*.render_and_loss` names no stage of its own: its
   renders are render.* and its losses `*.loss` (stage loss); `*.backward`
   is autograd's own backward (stage backward), `*.adam` and `*.stats` the
   update (stage update), `*.prefilter` and `*.decode` their own.
@@ -83,7 +90,9 @@ time); host_syncs_per_step (the sync spans' count), host_sync_wait_ms
 calls in no sync span: 0 when this list is complete); anchor.prefilter_ms
 (scaffold.prefilter's host time); near_render.device_ms,
 multiview.device_ms, multiview.idle_ms and multiview.syncs_per_step
-(pgsr.near_render and pgsr.multiview, read by the spans' names).
+(pgsr.near_render and pgsr.multiview, read by the spans' names);
+anchor_near.device_ms, anchor_near.idle_ms and anchor_near.syncs_per_step
+(scaffold.near_render and scaffold.multiview).
 """
 from __future__ import annotations
 

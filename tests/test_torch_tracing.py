@@ -17,7 +17,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 
 # the stage spans of one step, by the train step's prefix
 SCENE = {"3dgs": "vanilla", "2dgs": "vanilla", "pgsr": "pgsr",
-         "octree-2dgs": "scaffold"}
+         "octree-2dgs": "scaffold", "octree-pgsr": "scaffold"}
 STAGES = ("render_and_loss", "loss", "backward", "adam", "stats")
 RENDER_FWD = ("render.preprocess", "render.binning", "render.blend")
 RENDER_BWD = ("render.blend_backward", "render.gather_backward")
@@ -180,3 +180,40 @@ def test_a_pgsr_step_marks_its_neighbour_and_terms(two_camera, scene_dir,
     assert inside("sync.sample_clip", "pgsr.multiview")
     assert inside("pgsr.multiview", "pgsr.loss")
     assert inside("pgsr.near_render", "pgsr.render_and_loss")
+
+
+@pytest.mark.parametrize("two_camera", [False, True],
+                         ids=["single-camera", "two-camera"])
+def test_an_octree_pgsr_step_marks_its_neighbour_pipeline_and_terms(
+        two_camera, scene_dir, tmp_path):
+    trainer = trainer_for("octree-pgsr", scene_dir, str(tmp_path))
+    if two_camera:
+        trainer.scene.config.multi_view_from = 1
+    train_one(trainer, 2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_one(trainer, 3)
+    events = [e for e in prof.events()
+              if e.name.split(".")[0] in ("scaffold", "sync")]
+    names = [e.name for e in events]
+
+    def within(name, outer):
+        """The spans called `name` that lie inside one called `outer`."""
+        spans = [e.time_range for e in events if e.name == outer]
+        return [e for e in events if e.name == name
+                and any(o.start <= e.time_range.start
+                        and e.time_range.end <= o.end for o in spans)]
+    # a two-camera step runs the neighbour's prefilter, level gate, decode
+    # and render in one scaffold.near_render, holding one prefilter and one
+    # decode of its own, and its terms in one scaffold.multiview inside
+    # scaffold.loss, with their 14 bound uploads
+    n = 1 if two_camera else 0
+    assert names.count("scaffold.near_render") == n
+    assert names.count("scaffold.multiview") == n
+    assert names.count("scaffold.prefilter") == 1 + n
+    assert names.count("scaffold.decode") == 1 + n
+    assert len(within("scaffold.prefilter", "scaffold.near_render")) == n
+    assert len(within("scaffold.decode", "scaffold.near_render")) == n
+    assert names.count("sync.sample_clip") == 14 * n
+    assert len(within("sync.sample_clip", "scaffold.multiview")) == 14 * n
+    assert len(within("scaffold.near_render", "scaffold.loss")) == n
+    assert len(within("scaffold.multiview", "scaffold.loss")) == n
