@@ -55,8 +55,20 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             once a render backward; prints at render 0 the kernel's device
             time beside its byte bound, its time on the same cotangent
             attribute-major, and the old sort-and-scan chain's
-            (segment_sum_sorted) time. With --yardstick, every kernel of
-            this phase is held against DIR's build (below).
+            (segment_sum_sorted) time. Then the SH colour's kernel pair
+            (csrc/sh.cu) through sh_check: the forward against the eager
+            chain (sh_to_color_plain) on the same CUDA tensors, bit for
+            bit; the backward against autograd's gradients of that chain
+            (SH_BWD_TOL), against a second run of itself bit for bit, and
+            zero past the degree: sh_cases' hand-made inputs (each degree
+            with K = 16, a mean at the camera centre, rgb + 0.5 exactly 0
+            and on either side of it, models of degree 1 and 0, C = 0,
+            which launches nothing), then every render of one training
+            step of each SH_CELLS cell, which launched the forward once a
+            render; prints at render 0 each kernel's device time beside
+            its byte bound and the plain chain's forward and autograd
+            backward. With --yardstick, every kernel of this phase is held
+            against DIR's build (below).
 3. train    each main path through its CLI entry point, called in process
             on one synthetic COLMAP scene (8 ring cameras at 1600x1056, 200k
             initial points seen by the cameras whose frustum holds them, GT
@@ -74,8 +86,10 @@ Phases; any failure exits non-zero, and nothing is caught and passed over:
             the _mlp.npz and checkpoints.pth), and that every train render
             launched the path's forward and backward kernels (two renders
             on a multi-view step) and the instance expansion, and no
-            render launched the observe count; for the two-camera paths
-            also ring
+            render launched the observe count; the SH paths (3dgs, 2dgs,
+            pgsr) launched the SH colour's forward and backward at every
+            train render, the anchor paths neither; for the two-camera
+            paths also ring
             neighbours and no camera its own, and geo and NCC losses above
             0 on every multi-view step; for the anchor paths a scaling loss
             above 0 at every step, and for the octree ones an LOD mask that
@@ -268,6 +282,9 @@ MASK_OPS_PER_TILE = 76
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-4)
 BWD_TOL = dict(atol=2e-4, rtol=2e-3)
+# the SH colour's backward kernel against autograd's of the plain chain: the
+# sums of its direction gradient run in another order
+SH_BWD_TOL = dict(atol=1e-6, rtol=1e-5)
 
 WIDTH, HEIGHT = 1600, 1056      # bench.py's resolution
 N_CAMS = 8
@@ -319,6 +336,9 @@ OCCUPANCY = {"gssr_blend_fwd_occupancy": 3,
 # and the seed of their scenes
 MASK_CELLS = ("3dgs.init", "3dgs.full", "octree-2dgs.init")
 EXPAND_CELLS = MASK_CELLS + ("pgsr.two-camera",)
+# the cells whose renders colour their slots from SH (the octree ones decode
+# their colours)
+SH_CELLS = ("3dgs.full", "3dgs.init", "pgsr.two-camera")
 CELL_SEED = 2_147_483_713
 # each path's options beyond the common ones: SH degree 3 from step 15
 # (the anchor models have no SH); the anchor paths gather their
@@ -567,11 +587,12 @@ class Yardstick:
     def equal(self, fn, out, tag):
         """fn(), one wrapper call, must give `out`, its result on this
         tree's kernels, on the parent's too, bit for bit (a tensor or a
-        tuple of them)."""
+        tuple of them). An empty input (N = 0) launches no kernel on
+        either side and holds nothing."""
         with kernel_table(self.fns) as moved:
             base = fn()
-        assert len(moved) == 1, (tag, moved)
-        if not moved <= self.keys:
+        assert len(moved) <= 1, (tag, moved)
+        if not moved or not moved <= self.keys:
             return
         pairs = zip(out, base) if isinstance(out, tuple) else [(out, base)]
         assert all(torch.equal(a, b) for a, b in pairs), \
@@ -1307,6 +1328,155 @@ def phase_gather(dev, yard=None):
         del calls
 
 
+
+# ---------------------------------------------------------------------------
+# 2e. the SH colour's forward and backward against the plain chain
+# ---------------------------------------------------------------------------
+
+def sh_cases():
+    """Hand-made inputs of the SH colour on the CPU, name -> (degree, means
+    [C,3], f_dc [C,1,3], f_rest [C,K-1,3], campos [3], d_color [C,3]): at
+    each degree 0-3 with K = 16 (three of them below the model's degree),
+    1,001 seeded slots (a partial last block) whose first four are edge
+    rows: a mean at campos (a zero direction), then rgb + 0.5 exactly 0,
+    just below 0 and just above it in every channel (f_rest zero there and
+    f_dc the float32 values that put C0 * f_dc on -0.5, just past it and
+    just short of it); degree 1 with K = 4 and degree 0 with K = 1 (models
+    of a lower SH degree); C = 0."""
+    from gssr_tpu_torch.ops.sh import C0
+    g = torch.Generator().manual_seed(22)
+    campos = torch.tensor([0.3, -0.2, 4.0])
+    c0, up = torch.tensor(C0, dtype=torch.float32), torch.tensor(math.inf)
+    tie = torch.tensor(-0.5 / C0, dtype=torch.float32)
+    while float(c0 * tie + 0.5) < 0.0:
+        tie = torch.nextafter(tie, up)
+    edges = (tie, torch.nextafter(tie, -up), torch.nextafter(tie, up))
+
+    def case(deg, n, rest):
+        means = torch.randn((n, 3), generator=g) * 3.0
+        f_dc = torch.randn((n, 1, 3), generator=g) * 0.5
+        f_rest = torch.randn((n, rest, 3), generator=g) * 0.5
+        d_color = torch.randn((n, 3), generator=g)
+        if n:
+            means[0] = campos
+            for row, v in enumerate(edges, 1):
+                f_dc[row] = v
+                f_rest[row] = 0.0
+        return deg, means, f_dc, f_rest, campos.clone(), d_color
+
+    cases = {f"degree {d}, K = 16": case(d, 1001, 15) for d in range(4)}
+    cases["degree 1, K = 4"] = case(1, 1001, 3)
+    cases["degree 0, K = 1"] = case(0, 1001, 0)
+    cases["C = 0"] = case(3, 0, 15)
+    return cases
+
+
+def sh_work(deg, means, f_rest):
+    """The least bytes of the SH colour's forward and backward: forward the
+    mean, f_dc and the degree's f_rest rows read and the colour written
+    once a slot; backward those and the colour's cotangent read, and
+    d_means, d_f_dc and every row of d_f_rest written."""
+    n, rest = means.shape[0], f_rest.shape[1]
+    fwd = 4 * n * (3 + 3 * (deg + 1) ** 2 + 3)
+    bwd = 4 * n * (3 + 3 * (deg + 1) ** 2 + 3) + 4 * n * (6 + 3 * rest)
+    return fwd, bwd
+
+
+def sh_check(deg, means, f_dc, f_rest, campos, d_color, tag, yard=None):
+    """sh_fwd equal to the plain chain on the same tensors, bit for bit;
+    sh_bwd to autograd's gradients of it within SH_BWD_TOL, to a second
+    run of itself bit for bit, and zero past the degree; with --yardstick
+    both held against the parent's build. Returns the two calls."""
+    from gssr_tpu_torch.ops import sh as S
+    fwd = partial(S.sh_fwd, deg, means, f_dc, f_rest, campos)
+    bwd = partial(S.sh_bwd, deg, means, f_dc, f_rest, campos, d_color)
+    color = fwd()
+    with torch.no_grad():
+        want = S.sh_to_color_plain(deg, torch.cat([f_dc, f_rest], 1), means,
+                                   campos)
+    assert torch.equal(color, want), \
+        f"sh_fwd differs from the plain chain at {tag}"
+    got = bwd()
+    ref = S.sh_bwd_plain(deg, means, f_dc, f_rest, campos, d_color)
+    for a, b, what in zip(got, ref, ("d_means", "d_f_dc", "d_f_rest")):
+        torch.testing.assert_close(a, b, **SH_BWD_TOL,
+                                   msg=lambda m: f"{what} at {tag}: {m}")
+    assert all(torch.equal(a, b) for a, b in zip(got, bwd())), \
+        f"sh_bwd differs from run to run at {tag}"
+    d_rest = got[2]
+    assert d_rest.is_contiguous() and \
+        not d_rest[:, (deg + 1) ** 2 - 1:].any(), tag
+    held(yard, fwd, color, tag)
+    held(yard, bwd, got, tag)
+    return fwd, bwd
+
+
+def sh_cell_inputs(cell, dev):
+    """The SH colour's inputs at each render of one training step of
+    portbench's cell `cell` (sh_to_color's calls, which must have launched
+    the forward once each), detached, with a seeded cotangent: [(degree,
+    means, f_dc, f_rest, campos, d_color)]."""
+    from gssr_tpu_torch.ops import sh as S
+    calls, launched = cell_calls(cell, CELL_SEED, dev, S, "sh_to_color",
+                                 "sh_fwd")
+    assert launched == len(calls) >= 1, (cell, launched, len(calls))
+    rng = torch.Generator(device=dev.type).manual_seed(CELL_SEED)
+    return [(deg, *(t.detach() for t in (means, f_dc, f_rest, campos)),
+             torch.randn(means.shape, generator=rng, device=dev))
+            for (deg, (f_dc, f_rest), means, campos), _ in calls]
+
+
+def phase_sh(dev, yard=None):
+    """csrc/sh.cu's kernel pair through sh_check: sh_cases' inputs, then
+    those of one training step of each SH_CELLS cell, whose step must
+    launch the forward once a render; there render 0 is timed (device_ms)
+    beside each kernel's byte bound and the plain chain's forward and
+    autograd backward."""
+    from gssr_tpu_torch.ops import sh as S
+    if yard is not None and not {"sh_fwd", "sh_bwd"} <= yard.keys:
+        print("[kernels] sh_fwd, sh_bwd: the yardstick's build has no such "
+              "entry points; not held")
+        yard = None
+    for name, case in sh_cases().items():
+        deg, *ts = case
+        args = (deg, *(t.to(dev) for t in ts))
+        n = args[1].shape[0]
+        before = dict(S.LAUNCHES)
+        sh_check(*args, name, yard)
+        # one forward and two backward calls, none for C = 0
+        assert S.LAUNCHES == {"sh_fwd": before["sh_fwd"] + (n > 0),
+                              "sh_bwd": before["sh_bwd"] + 2 * (n > 0)}, \
+            (name, S.LAUNCHES, before)
+        print(f"[kernels] sh {name}: {n} slots; forward equal to the plain "
+              f"chain, backward to autograd's within {SH_BWD_TOL} and to a "
+              f"second run", flush=True)
+    for cell in SH_CELLS:
+        for i, args in enumerate(sh_cell_inputs(cell, dev)):
+            tag = f"{cell} render {i}"
+            deg, means, _, f_rest = args[:4]
+            fwd, bwd = sh_check(*args, tag, yard)
+            print(f"[kernels] sh at {tag}: degree {deg}, {means.shape[0]} "
+                  f"slots, K = {f_rest.shape[1] + 1}; forward equal to the "
+                  f"plain chain, backward to autograd's and to a second run",
+                  flush=True)
+            if i:
+                continue
+            rows = []
+            for what, fn, nbytes in zip(("sh_fwd", "sh_bwd"), (fwd, bwd),
+                                        sh_work(deg, means, f_rest)):
+                bound_ms, bound_by = bound(0, nbytes)
+                ms, parent_ms = kernel_ms(fn, yard,
+                                          timer=lambda f: [device_ms(f)])
+                rows.append(f"{what} {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                            f"({bound_by}: {nbytes} bytes, "
+                            f"{100 * bound_ms / ms:.0f} %)"
+                            + parent_line(parent_ms))
+            chain_ms = device_ms(lambda: S.sh_bwd_plain(*args), reps=20)
+            print(f"[kernels] sh at {tag}: " + "; ".join(rows)
+                  + f"; the plain chain forward and autograd backward "
+                  f"{chain_ms:.3f} ms", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # 3. the main path: train 3dgs through the CLI's entry point
 # ---------------------------------------------------------------------------
@@ -1397,9 +1567,9 @@ def write_scene(root, dev, seed=0):
 def kernel_counts():
     """Every kernel wrapper's launch count dict."""
     from gssr_tpu_torch.ops import (binning, blend, blend2d, blend_pgsr,
-                                    projection)
+                                    projection, sh)
     return (blend.LAUNCHES, blend2d.LAUNCHES, blend_pgsr.LAUNCHES,
-            projection.LAUNCHES, binning.LAUNCHES)
+            projection.LAUNCHES, binning.LAUNCHES, sh.LAUNCHES)
 
 
 def reset_counts():
@@ -1523,6 +1693,14 @@ def phase_train(dev, root, card_line, method):
     assert launches["gather_bwd"] >= STEPS, (launches["gather_bwd"], STEPS)
     # no render reads an observe count
     assert launches["blend_pgsr_obs"] == 0, launches
+    # every SH render colours its slots through the SH kernels, forward and
+    # backward; the anchor paths decode their colours and launch neither
+    if method in ANCHOR_METHODS:
+        assert launches["sh_fwd"] == launches["sh_bwd"] == 0, launches
+    else:
+        for k in ("sh_fwd", "sh_bwd"):
+            assert launches[k] >= renders, \
+                f"{k} launched {launches[k]} times in {renders} train renders"
     psnr = trainer.evals[STEPS]["eval_psnr"]
     print(f"{tag} {STEPS} steps in {wall:.1f} s (eval and save included); "
           f"L1 + D-SSIM loss epoch 1 {first:.5f} -> epoch "
@@ -3167,7 +3345,8 @@ def phase_report(trainer, launches, dev, yard=None):
     cam_h = scene.dataloader.train_cameras[0]
     cam = cam_h.arrays(dev)
     with torch.no_grad():
-        color = sh_to_color(3, g.get_features(p), p["xyz"], cam.campos)
+        color = sh_to_color(3, (p["f_dc"], p["f_rest"]), p["xyz"],
+                            cam.campos)
         inputs = blend_inputs(
             p["xyz"], g.get_scaling(p), g.get_rotation(p),
             g.get_opacity(p)[:, 0], color, cam, scene.width, scene.height,
@@ -3290,7 +3469,8 @@ def phase_report2d(trainer, launches, dev, yard=None):
     cam_h = scene.dataloader.train_cameras[0]
     cam = cam_h.arrays(dev)
     with torch.no_grad():
-        color = sh_to_color(3, g.get_features(p), p["xyz"], cam.campos)
+        color = sh_to_color(3, (p["f_dc"], p["f_rest"]), p["xyz"],
+                            cam.campos)
         inputs = blend2d_inputs(
             p["xyz"], g.get_scaling(p), g.get_rotation(p),
             g.get_opacity(p)[:, 0], color, cam, scene.width, scene.height,
@@ -3422,7 +3602,8 @@ def phase_report_pgsr(trainer, launches, dev, yard=None):
     cam = cam_h.arrays(dev)
     with torch.no_grad():
         scales, rots = g.get_scaling(p), g.get_rotation(p)
-        color = sh_to_color(3, g.get_features(p), p["xyz"], cam.campos)
+        color = sh_to_color(3, (p["f_dc"], p["f_rest"]), p["xyz"],
+                            cam.campos)
         normal, distance = planar_geometry(p["xyz"], scales, rots, cam)
         inputs = pgsr_inputs(
             p["xyz"], scales, rots, g.get_opacity(p)[:, 0], color, normal,
@@ -3615,6 +3796,7 @@ def main(argv=None) -> int:
     phase_tile_mask(dev, yard)
     phase_bin_expand(dev, yard)
     phase_gather(dev, yard)
+    phase_sh(dev, yard)
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_scene(os.path.join(root, "scene"), dev)

@@ -130,11 +130,6 @@ class VanillaGaussians:
         r = params["rotation"]
         return r / (torch.linalg.norm(r, dim=-1, keepdim=True) + 1e-12)
 
-    @staticmethod
-    def get_features(params):
-        """[C, K, 3] SH coefficients, DC first."""
-        return torch.cat([params["f_dc"], params["f_rest"]], dim=1)
-
     # ---------------- init --------------------------------------------
     def _new_state(self, params, n: int) -> GaussianState:
         cap = params["xyz"].shape[0]

@@ -34,6 +34,8 @@ _FWD = (_P, _I64, _P, _I32, _I32, _P)
 _BWD = (_P, _I64, _P, _I32, _I32, _P, _P, _P)
 _EXPAND = (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P)
 _GATHER = (_P, _I64, _I64, _P, _P, _I64, _I32, _P)
+_SH_FWD = (_P, _P, _P, _P, _I64, _I32, _I32, _P)
+_SH_BWD = (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P)
 # source -> its C entry points: (argtypes without the trailing stream);
 # *_occupancy report a kernel's registers, shared memory and blocks per SM.
 SOURCES = {
@@ -63,6 +65,10 @@ SOURCES = {
     },
     "projection.cu": {
         "gssr_tile_mask": (_P, _P, _P, _P, _P, _I64, _P, _P),
+    },
+    "sh.cu": {
+        "gssr_sh_fwd": _SH_FWD,
+        "gssr_sh_bwd": _SH_BWD,
     },
 }
 

@@ -64,9 +64,11 @@ def rasterize(means3d, scales, rotations, opacity, camera, width: int,
     """Render gaussians through one camera (a CameraArrays).
 
     means3d [N,3], scales [N,3] (activated), rotations [N,4] quaternions,
-    opacity [N] (activated). Exactly one of sh_coeffs [N,K,3] and
-    colors_precomp [N,3]. The image is rendered on the TILE-padded grid
-    and cropped to width x height. mean2d_offset: a zero [N,2] tensor
+    opacity [N] (activated). Exactly one of sh_coeffs, the pair (f_dc
+    [N,1,3], f_rest [N,K-1,3]) or one [N,K,3] tensor (ops/sh.py::
+    sh_to_color), and colors_precomp [N,3]. The image is rendered on the
+    TILE-padded grid and
+    cropped to width x height. mean2d_offset: a zero [N,2] tensor
     whose gradient is dL/dmean2d. band_rank / band_count and gauss_shard:
     the module docstring's multi-device branches.
     """

@@ -125,9 +125,11 @@ def rasterize_pgsr(means3d, scales, rotations, opacity, camera, width: int,
     CameraArrays).
 
     means3d [N,3], scales [N,3] (activated), rotations [N,4] quaternions,
-    opacity [N] (activated). Exactly one of sh_coeffs [N,K,3] and
-    colors_precomp [N,3]. The maps are rendered on the TILE-padded grid
-    and cropped to width x height. mean2d_offset, mean2d_abs_offset [N,2]
+    opacity [N] (activated). Exactly one of sh_coeffs, the pair (f_dc
+    [N,1,3], f_rest [N,K-1,3]) or one [N,K,3] tensor (ops/sh.py::
+    sh_to_color), and colors_precomp [N,3]. The maps are rendered on the
+    TILE-padded grid and
+    cropped to width x height. mean2d_offset, mean2d_abs_offset [N,2]
     and observe_offset [N,1] are zero tensors whose gradients carry the
     statistics of the module docstring. `observe` is None unless
     forward_observe. band_rank / band_count: the module docstring's band

@@ -116,7 +116,7 @@ class PGSRScene(VanillaScene):
         return rasterize_pgsr(
             params["xyz"], g.get_scaling(params), g.get_rotation(params),
             g.get_opacity(params)[:, 0], camera, self.width, self.height, bg,
-            sh_coeffs=g.get_features(params), sh_degree=sh_degree,
+            sh_coeffs=(params["f_dc"], params["f_rest"]), sh_degree=sh_degree,
             active_mask=active, scaling_modifier=self.config.scaling_modifier,
             mean2d_offset=mean2d_offset, mean2d_abs_offset=mean2d_abs_offset,
             observe_offset=observe_offset, forward_observe=forward_observe,

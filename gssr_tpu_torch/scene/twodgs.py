@@ -80,7 +80,7 @@ class TwoDGSScene(VanillaScene):
         return rasterize_2d(
             params["xyz"], g.get_scaling(params), g.get_rotation(params),
             g.get_opacity(params)[:, 0], camera, self.width, self.height, bg,
-            sh_coeffs=g.get_features(params), sh_degree=sh_degree,
+            sh_coeffs=(params["f_dc"], params["f_rest"]), sh_degree=sh_degree,
             active_mask=active, scaling_modifier=self.config.scaling_modifier,
             depth_ratio=self.config.depth_ratio, mean2d_offset=mean2d_offset,
             **par)

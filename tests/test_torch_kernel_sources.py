@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from gssr_tpu_torch.ops import (_kernels, binning, blend, blend2d,
-                                blend_pgsr, projection)
+                                blend_pgsr, projection, sh)
 
 CSRC = Path(_kernels.__file__).resolve().parent.parent / "csrc"
 KIND = {ctypes.c_void_p: "pointer", ctypes.c_int64: "int64",
@@ -68,7 +68,7 @@ def test_entry_points_match_their_bindings(source):
 
 
 @pytest.mark.parametrize("module",
-                         [binning, blend, blend2d, blend_pgsr, projection],
+                         [binning, blend, blend2d, blend_pgsr, projection, sh],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_launch_counters_name_entry_points(module):
     """Every kernel a wrapper counts has its entry point, gssr_<key>, in the
@@ -87,7 +87,7 @@ def test_no_entry_point_binding_or_counter_names_a_second_design():
     names = set()
     for source, entries in _kernels.SOURCES.items():
         names |= set(entries) | set(entry_points(source))
-    for module in (binning, blend, blend2d, blend_pgsr, projection):
+    for module in (binning, blend, blend2d, blend_pgsr, projection, sh):
         names |= set(module.LAUNCHES)
     assert names and not [n for n in names if re.search(r"_v\d+$", n)], names
 
